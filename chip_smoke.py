@@ -13,10 +13,15 @@ fails prints its error and the script exits non-zero.
 2. kernels   each kernel against its plain version on the card: the sweeps
              of tests/test_kernels.py, a head dim of 112 and the full-width
              qwen3-1.7b shapes, in float32 (tolerance 2e-5) and bfloat16
-             (2e-2); poisoned pages past each context or page bound; cl = 1
-             and cl = 0.  Times each kernel, its plain version and SDPA on a
+             (2e-2); contexts at, one past and short of the decode kernel's
+             split boundaries; prefill chunks whose length is no multiple of
+             the row tile and whose offsets are no multiple of the key tile;
+             poisoned pages past each context or page bound; cl = 1 and
+             cl = 0.  Times each kernel, its plain version and SDPA on a
              dense-gathered copy of the same inputs at the full-width
-             shapes.
+             shapes, each as CUDA-graph replays of back-to-back calls (the
+             device's time, without the host's launch gaps) and as eager
+             calls.
 3. drain     qwen3-1.7b at full width (28 layers, bf16, seeded random
              weights) through ``LLMEngine`` with the prefix cache on and
              512-token prefill chunks: 16 requests from 4 agents.  The
@@ -82,6 +87,14 @@ FULL_PAGED = (16, 8, 2, 128, 16, 256, 4096)
 FULL_CONTEXTS = (256, 4096)
 FULL_RAGGED = ([(512, 0), (512, 512), (512, 1024), (512, 1536)],
                8, 2, 128, 16, 128, 1024)
+# the kernels' tile edges at full width: decode contexts around the split
+# boundaries (SPLIT_TOKENS = 256: 1 to 513 tokens); prefill chunks of 100,
+# 65, 1 and 130 tokens (no multiple of the 64-token row tile at G = 2) at
+# offsets 37, 0, 63 and 64 (no multiple of the 64-token key tile but one)
+EDGE_PAGED = (8, 8, 2, 128, 16, 40, 512)
+EDGE_CONTEXTS = (1, 17, 255, 256, 257, 511, 512, 513)
+EDGE_RAGGED = ([(100, 37), (65, 0), (1, 63), (130, 64)], 8, 2, 128, 16, 13,
+               64)
 
 DEVICE = "cuda"
 
@@ -162,6 +175,49 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Mean device time of ``fn`` with the host out of the way: ``calls``
+    back-to-back calls captured in one CUDA graph, replayed ``replays``
+    times between CUDA events.  Inputs stay resident, as in ``time_ms``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def timings(kernel, plain, library, b_ms: float, b_by: str, shape) -> dict:
+    """Device times (graph replays) and eager times of a kernel, its plain
+    version and the library call, beside the kernel's bound."""
+    ms = graph_ms(kernel)
+    library_ms = graph_ms(library)
+    return {"kernel_ms": ms, "ref_ms": graph_ms(plain, calls=5),
+            "library_ms": library_ms,
+            "kernel_eager_ms": time_ms(kernel),
+            "ref_eager_ms": time_ms(plain, iters=5),
+            "library_eager_ms": time_ms(library),
+            "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+            "bound_share": b_ms / ms, "vs_library": ms / library_ms,
+            "shape": shape}
 
 
 def nbytes(*ts) -> int:
@@ -303,6 +359,16 @@ def phase_kernels(state, seed: int):
         require(torch.equal(paged_attention(
             *poison_paged(full, 1e4, float("nan"))), out_full),
             f"paged {name}: poison past the context changed the output")
+        edge = on_card(paged_case(rng, *EDGE_PAGED), tdt)
+        edge[4] = torch.tensor(EDGE_CONTEXTS, dtype=torch.int32,
+                               device=DEVICE)
+        out_edge = paged_attention(*edge)
+        worst = max(worst, compare(out_edge, ref.paged_attention_ref(*edge),
+                                   tol, f"paged {name} split edges"))
+        require(torch.equal(paged_attention(
+            *poison_paged(edge, 1e4, float("nan"))), out_edge),
+            f"paged {name}: poison past the split-edge contexts changed "
+            "the output")
         small = on_card(paged_case(rng, 1, 2, 2, 64, 8, 4, 32), tdt)
         small[4] = torch.tensor([11], dtype=torch.int32, device=DEVICE)
         require(torch.equal(paged_attention(*poison_paged(small, 1e4,
@@ -319,7 +385,7 @@ def phase_kernels(state, seed: int):
         q, kp, vp, bt, _ = on_card(paged_case(rng, 3, 2, 2, 64, 8, 2, 8), tdt)
         require(not paged_attention(q, kp, vp, bt, zero).any(),
                 f"paged {name}: cl = 0 must give zero rows")
-        checks += 5
+        checks += 7
         errs["paged_attention"][name] = max(worst, err_full)
         errs["paged_attention"][name + "_full"] = err_full
 
@@ -343,6 +409,15 @@ def phase_kernels(state, seed: int):
         require(torch.equal(ragged_segment_attention(
             *poison_ragged(rfull, 1e4, float("nan"))), rout_full),
             f"ragged {name}: poison past the page bound changed the output")
+        redge = on_card(ragged_case(rng, *EDGE_RAGGED), tdt)
+        rout_edge = ragged_segment_attention(*redge)
+        worst = max(worst, compare(rout_edge,
+                                   ref.ragged_segment_attention_ref(*redge),
+                                   tol, f"ragged {name} tile edges"))
+        require(torch.equal(ragged_segment_attention(
+            *poison_ragged(redge, 1e4, float("nan"))), rout_edge),
+            f"ragged {name}: poison past the tile-edge page bounds changed "
+            "the output")
         small = on_card(ragged_case(rng, [(4, 6), (2, 0)], 2, 2, 64, 8, 4, 40),
                         tdt)
         require(torch.equal(ragged_segment_attention(
@@ -350,7 +425,7 @@ def phase_kernels(state, seed: int):
             ragged_segment_attention(*small)),
             f"ragged {name}: poison past a small page bound changed the "
             "output")
-        checks += 3
+        checks += 5
         errs["ragged_segment_attention"][name] = max(worst, rerr_full)
         errs["ragged_segment_attention"][name + "_full"] = rerr_full
 
@@ -374,13 +449,11 @@ def time_paged(args):
     kv_bytes = 2 * tokens * kv * hd * kp.element_size()
     ops = 4 * tokens * kv * q.shape[2] * hd
     b_ms, b_by = bound(kv_bytes + nbytes(q, q, bt, cl), ops, "bfloat16")
-    return {"kernel_ms": time_ms(lambda: paged_attention(*args)),
-            "ref_ms": time_ms(lambda: ref.paged_attention_ref(*args),
-                              iters=5),
-            "library_ms": time_ms(sdpa_paged(*args)),
-            "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-            "shape": {"B": q.shape[0], "KV": kv, "G": q.shape[2], "hd": hd,
-                      "bs": kp.shape[1], "context_tokens": tokens}}
+    return timings(lambda: paged_attention(*args),
+                   lambda: ref.paged_attention_ref(*args), sdpa_paged(*args),
+                   b_ms, b_by,
+                   {"B": q.shape[0], "KV": kv, "G": q.shape[2], "hd": hd,
+                    "bs": kp.shape[1], "context_tokens": tokens})
 
 
 def time_ragged(args):
@@ -394,13 +467,11 @@ def time_ragged(args):
     kv_bytes = 2 * reach * kv * hd * kp.element_size()
     ops = 4 * kv * g * hd * int((pos.long() + 1).sum())
     b_ms, b_by = bound(kv_bytes + nbytes(q, q, bt, pos), ops, "bfloat16")
-    return {"kernel_ms": time_ms(lambda: ragged_segment_attention(*args)),
-            "ref_ms": time_ms(lambda: ref.ragged_segment_attention_ref(*args),
-                              iters=5),
-            "library_ms": time_ms(sdpa_ragged(*args)),
-            "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-            "shape": {"S": s, "L": lq, "KV": kv, "G": g, "hd": hd, "bs": bs,
-                      "max_positions": pos.max(dim=1).values.tolist()}}
+    return timings(lambda: ragged_segment_attention(*args),
+                   lambda: ref.ragged_segment_attention_ref(*args),
+                   sdpa_ragged(*args), b_ms, b_by,
+                   {"S": s, "L": lq, "KV": kv, "G": g, "hd": hd, "bs": bs,
+                    "max_positions": pos.max(dim=1).values.tolist()})
 
 
 # =============================================================================
@@ -499,19 +570,22 @@ def device_busy(profile_events, wall_s: float):
     """Busy and idle shares of the card over ``wall_s``, and each kernel
     family's share of the busy time, from a torch.profiler trace."""
     from torch.autograd import DeviceType
-    spans, by_name = [], {}
+    spans, by_name, count = [], {}, {}
     for e in profile_events:
         if e.device_type != DeviceType.CUDA:
             continue
         s, t = e.time_range.start, e.time_range.end
         spans.append((s, t))
         name = e.name
-        key = ("paged_attention" if "paged_attention_kernel" in name
+        # paged_attention_split_kernel; ragged_attention_tc_kernel (bf16)
+        # and ragged_attention_kernel (fp32)
+        key = ("paged_attention" if "paged_attention" in name
                else "ragged_segment_attention"
-               if "ragged_attention_kernel" in name
+               if "ragged_attention" in name
                else "gemm" if "gemm" in name.lower() or "cutlass" in name
                else "other")
         by_name[key] = by_name.get(key, 0.0) + (t - s)
+        count[key] = count.get(key, 0) + 1
     if not spans:
         return None
     spans.sort()
@@ -527,7 +601,11 @@ def device_busy(profile_events, wall_s: float):
     return {"device_busy_s": busy_s, "wall_s": wall_s,
             "idle_share": max(0.0, 1.0 - busy_s / wall_s),
             "busy_share_by_kernel": {k: v * 1e-6 / busy_s
-                                     for k, v in sorted(by_name.items())}}
+                                     for k, v in sorted(by_name.items())},
+            "attention_ms_per_launch": {
+                k: by_name[k] * 1e-3 / count[k] for k in
+                ("paged_attention", "ragged_segment_attention")
+                if count.get(k)}}
 
 
 def phase_drain(state, seed: int):
@@ -558,6 +636,10 @@ def phase_drain(state, seed: int):
                 "ragged_segment_attention": ragged_segment_attention.launches}
     state["launches"] = launches
     require(min(launches.values()) > 0, f"a kernel never launched: {launches}")
+    # the split merges run inside the kernels: at most one launch of each
+    # kernel per layer and iteration
+    require(max(launches.values()) <= cfg.num_layers * iters,
+            f"more than one launch per layer and iteration: {launches}")
     require(runner.n_dispatches == iters,
             f"{runner.n_dispatches} dispatches for {iters} iterations")
     require(addrs == {addr}, "the pool moved during the drain")
@@ -733,11 +815,16 @@ def phase_identity(state, seed: int):
 
 def kernels_line(state):
     rows = []
-    for name, src, replaces in (
+    for name, src, replaces, bodies in (
             ("paged_attention", PAGED_SRC,
-             "src/repro/kernels/paged_attention.py:80"),
+             "src/repro/kernels/paged_attention.py:80",
+             {"bfloat16": "paged_attention_split_kernel (CUDA cores)",
+              "float32": "paged_attention_split_kernel (CUDA cores)"}),
             ("ragged_segment_attention", RAGGED_SRC,
-             "src/repro/kernels/ragged_attention.py:108")):
+             "src/repro/kernels/ragged_attention.py:108",
+             {"bfloat16": "ragged_attention_tc_kernel (wgmma tensor cores)",
+              "float32": "ragged_attention_kernel (fp32 CUDA cores, "
+                         "attend_rows of csrc/attention_tile.cuh)"})):
         t = state["timing"][name]
         rows.append({
             "name": name, "route": "cuda", "source": src,
@@ -745,7 +832,13 @@ def kernels_line(state):
             "max_abs_err": state["errs"][name]["bfloat16_full"],
             "ms": t["kernel_ms"], "plain_ms": t["ref_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "dtype": "bfloat16",
+            "library_ms": t["library_ms"], "bound_share": t["bound_share"],
+            "vs_library": t["vs_library"],
+            "timing": "CUDA-graph replay of back-to-back calls",
+            "eager_ms": t["kernel_eager_ms"],
+            "plain_eager_ms": t["ref_eager_ms"],
+            "library_eager_ms": t["library_eager_ms"],
+            "dtype": "bfloat16", "body_by_dtype": bodies,
             "shape": t["shape"],
             "max_abs_err_by_dtype": {
                 k: v for k, v in state["errs"][name].items()

@@ -22,7 +22,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("paged_attention.cu", "ragged_attention.cu")
-HEADERS = ("attention_tile.cuh",)
+HEADERS = ("attention_tile.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -36,9 +36,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # q, k_pool, v_pool, block_tables, context_lens, out,
-    # b, n_kv, g, hd, nb, bs, dtype, stream
-    "paged_attention_launch": [_P] * 6 + [_I] * 7 + [_P],
+    # q, k_pool, v_pool, block_tables, context_lens, out, part_acc,
+    # part_ml, counters, b, n_kv, g, hd, nb, bs, n_splits, split_tokens,
+    # dtype, stream
+    "paged_attention_launch": [_P] * 9 + [_I] * 9 + [_P],
     # q, k_pool, v_pool, block_tables, positions, out,
     # n_seg, seq_l, n_kv, g, hd, nb, bs, dtype, stream
     "ragged_attention_launch": [_P] * 6 + [_I] * 8 + [_P],

@@ -2,9 +2,11 @@
 
 Port of the Pallas TPU kernel ``repro/kernels/paged_attention.py:
 paged_attention``; the kernel is ``csrc/paged_attention.cu``.  One query
-token per sequence attends its paged KV (grid (B, KV), a token loop per
-block).  On a CPU tensor the wrapper computes the plain PyTorch version
-(``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
+token per sequence attends its paged KV.  The kernel splits each context
+into ``SPLIT_TOKENS``-token splits over blocks (flash-decoding) and merges
+the splits' partials inside the same launch.  On a CPU tensor the wrapper
+computes the plain PyTorch version (``kernels/ref.py``); on a CUDA tensor
+it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -14,6 +16,20 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import paged_attention_ref
 
 MAX_GROUP = 16      # query heads per KV head one block holds
+SPLIT_TOKENS = 256  # tokens per split; a multiple of the kernel's 32-token stage
+
+# per device: int32 arrival counters of the split merge, all zero between
+# launches (each merging block resets its own).  Launches on one stream
+# share them, as the serving step's do; two streams must not.
+_counters: dict = {}
+
+
+def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    c = _counters.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = c
+    return c
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -42,12 +58,23 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if b == 0 or nb == 0:
         # nothing to attend: a zero grid dimension is a launch error
         return out.zero_()
+    n_splits = -(-nb * bs // SPLIT_TOKENS)
+    part_acc = part_ml = counters = None      # passed as NULL
+    if n_splits > 1:
+        part_acc = torch.empty(b * kv * n_splits * g * hd,
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(b * kv * n_splits * g * 2, dtype=torch.float32,
+                              device=q.device)
+        counters = _arrival_counters(q.device, b * kv)
     lib = build.load_library()
     with torch.cuda.device(q.device):
         rc = lib.paged_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            b, kv, g, hd, nb, bs, build.dtype_code(q),
+            *(None if t is None else t.data_ptr()
+              for t in (part_acc, part_ml, counters)),
+            b, kv, g, hd, nb, bs, n_splits, SPLIT_TOKENS,
+            build.dtype_code(q),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention: launch failed, cudaError {rc}")

@@ -4,11 +4,12 @@ Port of the Pallas TPU kernel ``repro/kernels/ragged_attention.py:
 ragged_segment_attention``; the kernel is ``csrc/ragged_attention.cu``.
 Each prompt chunk ("segment") is a dense (L,) tile of queries at absolute
 positions, attending its own sequence's pool-resident KV through a
-per-segment block table under a segment-blocked causal mask (grid
-(S, KV, query-row tiles), a token loop per block bounded by the tile's
-largest position).  On a CPU tensor the wrapper computes the plain
-PyTorch version (``kernels/ref.py``); on a CUDA tensor it launches the
-kernel or raises.
+per-segment block table under a segment-blocked causal mask: one block
+per 128 (bfloat16) or 64 (float32) query rows of one KV head, a key-tile
+loop bounded by the rows' largest position.  bfloat16 runs its products
+on the tensor cores (wgmma); float32 runs on an fp32 CUDA-core body.  On
+a CPU tensor the wrapper computes the plain PyTorch version
+(``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 

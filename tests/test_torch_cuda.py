@@ -124,6 +124,38 @@ def test_cuda_ragged_kernel_matches_ref(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", list(TORCH_DTYPES))
+def test_cuda_paged_kernel_split_edges(cuda, dtype, g):
+    """Contexts at, one before and one past the kernel's split boundaries,
+    shorter than one split, and a whole table, for G 1 / 2 / 4 / 8."""
+    from repro_torch.kernels.paged_attention import SPLIT_TOKENS
+    tdt, tol = TORCH_DTYPES[dtype]
+    sp = SPLIT_TOKENS
+    q, kp, vp, bt, _ = paged_case(5, 8, 2, g, 128, 16, 3 * sp // 16, 512)
+    cl = np.array([1, 17, sp - 1, sp, sp + 1, 2 * sp, 2 * sp + 1, 3 * sp],
+                  np.int32)
+    args = to_torch((q, kp, vp, bt, cl), tdt, cuda)
+    out = as_np(paged_attention(*args))
+    assert_close(out, as_np(paged_attention_ref(*args)), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", list(TORCH_DTYPES))
+def test_cuda_ragged_kernel_tile_edges(cuda, dtype, g):
+    """Chunks whose length is not a multiple of the row tile and whose
+    offsets are not a multiple of the 64-token key tile, for G 1 / 2 / 4
+    / 8."""
+    tdt, tol = TORCH_DTYPES[dtype]
+    case = ([(100, 37), (65, 0), (1, 63), (130, 64)], 2, g, 64, 16, 13, 64)
+    args = to_torch(ragged_case(6, *case), tdt, cuda)
+    out = as_np(ragged_segment_attention(*args))
+    assert not np.isnan(out).any()
+    assert_close(out, as_np(ragged_segment_attention_ref(*args)), tol)
+
+
+@pytest.mark.cuda
 def test_cuda_kernels_never_read_past_the_bounds(cuda):
     """NaN past a sequence's context (decode) or past a segment's page
     bound (ragged) changes no bit of the kernels' output."""

@@ -28,7 +28,9 @@ from repro_torch.kernels.ragged_attention import ragged_segment_attention
 from repro_torch.kernels.ref import (
     chunked_prefill_attention_ref,
     paged_attention_ref,
+    paged_attention_split_ref,
     ragged_segment_attention_ref,
+    ragged_segment_attention_tiled_ref,
 )
 from test_torch_cuda import (
     RAGGED_SWEEP,
@@ -77,6 +79,63 @@ def test_ragged_ref_matches_jax(case, dtype):
     assert not np.isnan(ours).any()
     assert_close(ours, jax_ragged_ref(*jargs), tol)
     assert_close(ours, pallas_ragged(*jargs, interpret=True), tol)
+
+
+# split sizes of the decode kernel's algorithm, per shape: one page, three
+# pages, and more than the whole table (a single split)
+SPLITS = {"page": lambda bs, nb: bs, "three_pages": lambda bs, nb: 3 * bs,
+          "beyond": lambda bs, nb: nb * bs + 8}
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_paged_split_ref_matches_jax(shape, split, dtype):
+    """The split-and-merge algorithm against the JAX oracle (f32 2e-5,
+    bf16 2e-2), with contexts set to 1, to a split boundary and to one
+    past it where the table holds them."""
+    jdt, tdt, tol = DTYPES[dtype]
+    b, _, _, _, bs, nb, _ = shape
+    split_tokens = SPLITS[split](bs, nb)
+    q, kp, vp, bt, cl = paged_case(42, *shape)
+    edges = [1, min(split_tokens, nb * bs), min(split_tokens + 1, nb * bs)]
+    cl[:min(b, 3)] = edges[:b]
+    ours = as_np(paged_attention_split_ref(
+        *to_torch((q, kp, vp, bt, cl), tdt), split_tokens))
+    assert_close(ours, jax_paged_ref(*to_jax((q, kp, vp, bt, cl), jdt)), tol)
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_paged_split_ref_edge_contexts(split, dtype):
+    """cl = 0 gives zero rows, as the Pallas kernel does (the JAX oracle
+    averages over the masked table there); cl = 1, a split boundary and
+    one past it match the Pallas kernel in interpret mode."""
+    jdt, tdt, tol = DTYPES[dtype]
+    shape = (4, 2, 2, 64, 8, 5, 32)
+    split_tokens = SPLITS[split](8, 5)
+    q, kp, vp, bt, cl = paged_case(9, *shape)
+    cl[:] = [0, 1, min(split_tokens, 40), min(split_tokens + 1, 40)]
+    ours = as_np(paged_attention_split_ref(
+        *to_torch((q, kp, vp, bt, cl), tdt), split_tokens))
+    assert not ours[0].any()
+    assert_close(ours, pallas_paged(*to_jax((q, kp, vp, bt, cl), jdt),
+                                    interpret=True), tol)
+
+
+@pytest.mark.parametrize("key_tile", [16, 64])
+@pytest.mark.parametrize("case", RAGGED_SWEEP)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ragged_tiled_ref_matches_jax(case, key_tile, dtype):
+    """The online softmax over key tiles, P rounded to v's dtype, against
+    the JAX oracle (f32 2e-5, bf16 2e-2)."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = ragged_case(11, *case)
+    ours = as_np(ragged_segment_attention_tiled_ref(*to_torch(arrays, tdt),
+                                                    key_tile))
+    assert ours.shape == arrays[0].shape
+    assert not np.isnan(ours).any()
+    assert_close(ours, jax_ragged_ref(*to_jax(arrays, jdt)), tol)
 
 
 @pytest.mark.parametrize("window", [None, 3])
