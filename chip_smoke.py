@@ -33,6 +33,24 @@ fails prints its error and the script exits non-zero.
              agree wherever the plain run's top-2 logit margin exceeds 1e-4,
              and each request's first token must be the argmax of
              ``LanguageModel.prefill`` on its prompt.
+5. workflow  the Kairos multi-agent path: the quickstart's QA application
+             (Router -> MathAgent | HumanitiesAgent, system prompts of 256
+             and 1024 tokens, questions of 64-512 tokens, 4 and 64 new
+             tokens) through ``repro_torch.agents.Workflow`` on a
+             2-instance ``ServingCluster`` of full-width bf16 qwen3-1.7b
+             (Kairos priorities, memory-aware time-slot dispatch, prefix
+             cache, 512-token chunks): 32 tasks submitted at once.  The
+             launch counters are zeroed just before and read just after.
+             Reports workflow end-to-end latency, per-agent TTFT and TPOT,
+             per-instance requests and iterations, the learned priority
+             table, the slowest workflow's critical path and the host
+             seconds of each part of the cluster step.  The same traffic
+             again through the serial loop (``pipelined=False``), and once
+             more pipelined under the profiler (the card's busy and idle
+             shares).  Then 8 tasks
+             at 4 layers in float32, every LLM call replayed alone through
+             one engine on the plain versions: streams must agree wherever
+             the plain run's top-2 margin exceeds 1e-4.
 
 Then the per-kernel summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -43,10 +61,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -813,6 +833,332 @@ def phase_identity(state, seed: int):
             "first_token_ties_skipped": first_ties}
 
 
+# =============================================================================
+# phase 5: the Kairos multi-agent path
+# =============================================================================
+
+# the quickstart's QA topology at realistic lengths
+WF_SYSTEM = {"Router": 256, "MathAgent": 1024, "HumanitiesAgent": 1024}
+WF_QUESTION = (64, 513)
+WF_NEW = {"Router": 4, "MathAgent": 64, "HumanitiesAgent": 64}
+WF_TASKS, WF_CHECK_TASKS = 32, 8
+WF_CONFIG = dict(n_instances=2, num_blocks=2048, block_size=16,
+                 max_batch=16, prefix_caching=True, prefill_chunk_tokens=512,
+                 policy="kairos")
+
+
+def qa_agents(seed: int, vocab: int, calls: list):
+    """Router -> MathAgent | HumanitiesAgent, as ``examples/quickstart.py``,
+    with system prompts drawn from ``seed``.  Every LLM call is appended
+    to ``calls`` as (agent, prompt with its system prompt, max_new_tokens,
+    output tokens)."""
+    from repro_torch.agents import BaseAgent
+    rng = np.random.default_rng(seed)
+    system = {a: rng.integers(0, vocab, n).astype(np.int32)
+              for a, n in WF_SYSTEM.items()}
+    lock = threading.Lock()
+
+    class QAAgent(BaseAgent):
+        def system_prompt_tokens(self):
+            return system[self.name]
+
+        def ask(self, question, metadata):
+            out = self.generate(question, metadata,
+                                max_new_tokens=WF_NEW[self.name])
+            with lock:
+                calls.append((self.name,
+                              np.concatenate([system[self.name], question]),
+                              WF_NEW[self.name], list(out)))
+            return out
+
+    class Router(QAAgent):
+        def _run_impl(self, input_data, metadata):
+            out = self.ask(input_data["question"], metadata)
+            # route by content (synthetic: parity of the first token)
+            return input_data, ("MathAgent" if out[0] % 2 == 0
+                                else "HumanitiesAgent")
+
+    class Expert(QAAgent):
+        def _run_impl(self, input_data, metadata):
+            return {"answer": self.ask(input_data["question"], metadata),
+                    "by": self.name}, None
+
+    return {"Router": Router, "MathAgent": Expert, "HumanitiesAgent": Expert}
+
+
+def host_clock(wf):
+    """Wrap the cluster's parts so that each records its host seconds and
+    calls: the cluster step, the balancer tick, the orchestrator's
+    completion hook, and each engine's dispatch (plan, flatten, launches),
+    device wait (``sync``) and collect.  Returns the running totals."""
+    totals = {}
+    lock = threading.Lock()
+
+    def wrap(obj, attr, key):
+        f = getattr(obj, attr)
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return f(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t
+                with lock:
+                    s, n = totals.get(key, (0.0, 0))
+                    totals[key] = (s + dt, n + 1)
+
+        setattr(obj, attr, timed)
+
+    c = wf.cluster
+    wrap(c, "step", "cluster_step")
+    wrap(c.balancer, "tick", "balancer_tick")
+    wrap(c.orch, "on_completion", "orchestrator_on_completion")
+    for e in c.engines:
+        for attr in ("dispatch_iteration", "sync", "collect"):
+            wrap(e, attr, f"engine_{attr}")
+    return totals
+
+
+def run_workflow(model, params, seed: int, n_tasks: int, device=DEVICE,
+                 pipelined: bool = True, profile: bool = False):
+    """The QA app with ``n_tasks`` tasks submitted at once, on the
+    cluster ``Workflow.add_engine`` would build, but at the given model's
+    width.  Returns (workflow, msg ids, results, LLM calls, submit time,
+    wall seconds, host seconds and calls by part, the torch.profiler
+    events of the run's device activity when ``profile``)."""
+    from repro_torch.agents import Workflow
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import (
+        ServingCluster,
+        ServingConfig,
+        reset_request_ids,
+    )
+    reset_request_ids()
+    wf = Workflow(app_name="QA", config=ServingConfig(**WF_CONFIG),
+                  tracer=Tracer(), device=device, pipelined=pipelined)
+    # what add_engine does, on these weights
+    wf.cluster = ServingCluster.from_config(
+        model, params, wf.orch, wf.config, pipelined=wf.pipelined,
+        tracer=wf.tracer, device=device)
+    wf.vocab_size = model.cfg.vocab_size
+    calls = []
+    for name, cls in qa_agents(seed, wf.vocab_size, calls).items():
+        wf.add_agent(name, cls)
+    rng = np.random.default_rng(seed + 1)
+    questions = [rng.integers(0, wf.vocab_size,
+                              int(rng.integers(*WF_QUESTION))).astype(np.int32)
+                 for _ in range(n_tasks)]
+    totals = host_clock(wf)
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        prof = torch_profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.monotonic()
+    ids = [wf.submit_task("Router", {"question": q}) for q in questions]
+    try:
+        results = wf.run(timeout=900)
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    wall = time.monotonic() - t0
+    wf.cluster.close()
+    return (wf, ids, results, calls, t0, wall, totals,
+            prof.events() if prof is not None else None)
+
+
+def workflow_report(wf, ids, results, t0: float, wall: float, vocab: int,
+                    totals=None):
+    """Checks of one workflow run, and what it measured."""
+    from repro_torch.obs import percentile
+    require(len(results) == len(ids),
+            f"{len(results)} of {len(ids)} workflows completed")
+    for m in ids:
+        r = results[m]
+        require(not r.get("failed"), f"{m} failed: {r.get('error')}")
+        require(r["by"] in ("MathAgent", "HumanitiesAgent")
+                and len(r["answer"]) == WF_NEW[r["by"]]
+                and all(0 <= int(t) < vocab for t in r["answer"]),
+                f"{m}: bad result {r['by']} {r['answer'][:4]}...")
+    snap = wf.metrics_snapshot()
+    instances = {}
+    for e in wf.cluster.engines:
+        label = wf.cluster.metrics_label(e)
+        iters = int(snap.get(f"{label}.iteration_tokens.count", 0))
+        inst = {"requests": int(snap[f"{label}.n_finished"]),
+                "iterations": iters,
+                "n_dispatches": int(snap[f"{label}.n_dispatches"]),
+                "n_preempted": int(snap[f"{label}.n_preempted"]),
+                "prefill_tokens_saved": int(
+                    snap[f"{label}.prefill_tokens_saved"])}
+        require(inst["requests"] >= 1, f"{label} served no request")
+        require(inst["n_dispatches"] == iters,
+                f"{label}: {inst['n_dispatches']} dispatches for {iters} "
+                "iterations")
+        instances[label] = inst
+    agents = {"Router", "MathAgent", "HumanitiesAgent"}
+    require(set(wf.orch.profiler.agents()) == agents,
+            f"profiles learned for {wf.orch.profiler.agents()}")
+    wf.orch.refresh_priorities()
+    table = {k[1]: v for k, v in wf.orch.priorities.scores.items()}
+    require(set(table) == agents, f"priority table over {sorted(table)}")
+    pc = wf.prefix_cache_stats()
+
+    spans = wf.trace_spans()
+    e2e = {m: max(s.finish for s in spans if s.msg_id == m) - t0
+           for m in ids}
+    lat = sorted(e2e.values())
+    by_agent = {}
+    for s in spans:
+        a = by_agent.setdefault(s.name, {"ttft": [], "tpot": []})
+        a["ttft"].append(s.first_token - s.arrival)
+        a["tpot"].append((s.finish - s.first_token) / (WF_NEW[s.name] - 1))
+    slowest = max(e2e, key=e2e.get)
+    cp = wf.critical_path(slowest)
+    return {"workflows": len(results), "wall_s": wall,
+            "e2e_median_s": statistics.median(lat),
+            "e2e_p90_s": percentile(lat, 90),
+            "per_agent": {a: {"calls": len(v["ttft"]),
+                              "ttft_median_s": statistics.median(v["ttft"]),
+                              "tpot_median_s": statistics.median(v["tpot"])}
+                          for a, v in sorted(by_agent.items())},
+            "instances": instances,
+            "priority_table": dict(sorted(table.items(),
+                                          key=lambda kv: kv[1])),
+            "prefill_tokens": pc["prefill_tokens"],
+            "prefill_tokens_saved": pc["prefill_tokens_saved"],
+            "slowest_workflow": {"e2e_s": e2e[slowest],
+                                 "critical_path": cp.breakdown(),
+                                 "stages": cp.stage_rows()},
+            "host_s_by_part": {k: {"s": v[0], "calls": v[1]}
+                               for k, v in sorted((totals or {}).items())}}
+
+
+def replay_check(model, params, calls, device=DEVICE):
+    """Every recorded LLM call, alone through one engine on the plain
+    versions: the workflow's stream must equal the replay's wherever the
+    replay's top-2 margin exceeds MARGIN."""
+    from repro_torch import serving
+    runner = serving.PagedModelRunner(model, params, num_blocks=256,
+                                      block_size=16, max_batch=16,
+                                      backend="ref", device=device)
+    log, undo = record_margins(runner)
+    compared = identical = near_ties = 0
+    min_margin = float("inf")
+    try:
+        eng = serving.LLMEngine(runner, max_batch=16,
+                                prefill_chunk_tokens=512)
+        for k, (agent, prompt, max_new, out) in enumerate(calls):
+            start = len(log)
+            eng.submit(serving.Request(
+                agent_name=agent, msg_id=f"c{k}", prompt_len=len(prompt),
+                prompt_tokens=prompt, max_new_tokens=max_new))
+            done = eng.run_until_drained()
+            streams, margins = streams_and_margins(done, log[start:],
+                                                   max_new)
+            r, m = streams[f"c{k}"], margins[f"c{k}"]
+            require(len(out) == len(r) == len(m) == max_new,
+                    f"call {k}: stream lengths")
+            for i in range(max_new):
+                if int(out[i]) != r[i]:
+                    require(m[i] <= MARGIN, f"call {k} ({agent}) token {i}: "
+                            f"cuda {out[i]} vs ref {r[i]} at margin {m[i]}")
+                    near_ties += 1
+                    break
+                compared += 1
+                min_margin = min(min_margin, m[i])
+            else:
+                identical += 1
+    finally:
+        undo()
+    return {"calls": len(calls), "identical_streams": identical,
+            "tokens_compared": compared, "near_tie_divergences": near_ties,
+            "min_margin_compared": min_margin}
+
+
+def release_pools() -> None:
+    """Free the pools of engines that are gone: a Workflow and an engine
+    hold reference cycles (agents and the workflow, the scheduler's
+    preemption hook and its engine), so their pools wait for the cycle
+    collector unless it runs now."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_workflow(state, seed: int):
+    import torch
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    release_pools()
+    cfg = full_config()
+    model, params = served(cfg, seed)
+    # warm-up: the dispatch workers' cuBLAS handles, the allocator
+    run_workflow(model, params, seed + 7, 2)
+    release_pools()
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    ragged_segment_attention.launches = 0
+    wf, ids, results, _, t0, wall, totals, _ = run_workflow(
+        model, params, seed, WF_TASKS)
+    launches = {"paged_attention": paged_attention.launches,
+                "ragged_segment_attention": ragged_segment_attention.launches}
+    state["workflow_launches"] = launches
+    require(min(launches.values()) > 0, f"a kernel never launched: {launches}")
+    out = workflow_report(wf, ids, results, t0, wall, cfg.vocab_size, totals)
+    require(out["prefill_tokens_saved"] > 0, "the prefix cache saved nothing")
+    iters = sum(i["iterations"] for i in out["instances"].values())
+    require(max(launches.values()) <= cfg.num_layers * iters,
+            f"more than one launch per layer and iteration: {launches}")
+    out.update({"model": "qwen3-1.7b", "layers": cfg.num_layers,
+                "dtype": cfg.dtype, "config": WF_CONFIG,
+                "kernel_launches": launches,
+                "launches_per_iteration": {k: v / iters
+                                           for k, v in launches.items()},
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "card": state["smi"]})
+    del wf
+    release_pools()
+    # the same traffic stepped by the serial loop (one thread, engine by
+    # engine), and once more pipelined under the profiler for the card's
+    # busy and idle shares
+    wf, ids, results, _, t0, wall, totals, _ = run_workflow(
+        model, params, seed, WF_TASKS, pipelined=False)
+    serial = workflow_report(wf, ids, results, t0, wall, cfg.vocab_size,
+                             totals)
+    out["serial_loop"] = {k: serial[k] for k in (
+        "wall_s", "e2e_median_s", "e2e_p90_s", "per_agent", "instances",
+        "host_s_by_part")}
+    del wf
+    release_pools()
+    wf, ids, results, _, t0, wall, _, events = run_workflow(
+        model, params, seed, WF_TASKS, profile=True)
+    require(len(results) == len(ids), "profiled run incomplete")
+    busy = device_busy(events, wall)
+    require(busy is not None, "the profiler saw no device activity")
+    # the profiler slows the host: read the busy time against the
+    # unprofiled runs' wall times too
+    for key, w in (("pipelined", out["wall_s"]),
+                   ("serial_loop", out["serial_loop"]["wall_s"])):
+        busy[f"idle_share_of_unprofiled_{key}_wall"] = max(
+            0.0, 1.0 - busy["device_busy_s"] / w)
+    out["profiled"] = busy
+    del wf, events, model, params
+    release_pools()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    model32, params32 = served(cfg32, seed)
+    wf, ids, results, calls, t0, wall, _, _ = run_workflow(
+        model32, params32, seed, WF_CHECK_TASKS)
+    check = workflow_report(wf, ids, results, t0, wall, cfg32.vocab_size)
+    require(len(calls) == 2 * WF_CHECK_TASKS, f"{len(calls)} LLM calls")
+    out["float32_check"] = {"layers": cfg32.num_layers, "tasks": len(ids),
+                            **replay_check(model32, params32, calls)}
+    out["float32_check"]["e2e_median_s"] = check["e2e_median_s"]
+    return out
+
+
 def kernels_line(state):
     rows = []
     for name, src, replaces, bodies in (
@@ -828,7 +1174,10 @@ def kernels_line(state):
         t = state["timing"][name]
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": state["launches"][name],
+            "replaces": replaces,
+            "launches": state["workflow_launches"][name],
+            "launches_by_path": {"drain": state["launches"][name],
+                                 "workflow": state["workflow_launches"][name]},
             "max_abs_err": state["errs"][name]["bfloat16_full"],
             "ms": t["kernel_ms"], "plain_ms": t["ref_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -875,7 +1224,8 @@ def main(argv=None) -> int:
     phases = (("build", lambda: phase_build(state)),
               ("kernels", lambda: phase_kernels(state, args.seed)),
               ("drain", lambda: phase_drain(state, args.seed)),
-              ("identity", lambda: phase_identity(state, args.seed)))
+              ("identity", lambda: phase_identity(state, args.seed)),
+              ("workflow", lambda: phase_workflow(state, args.seed)))
     for name, run in phases:
         t0 = time.perf_counter()
         try:

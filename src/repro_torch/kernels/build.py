@@ -8,6 +8,11 @@ repository root, and loaded with ``ctypes``.  The library's file name
 carries a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is reused.  A missing ``nvcc`` or a failed build
 raises: there is no fallback.
+
+The cluster launches kernels from several worker threads: one lock
+makes the first use build and load the library once, and the build
+links under a private temporary name and renames the library into
+place, so another process never loads a half-written file.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -33,6 +39,8 @@ build_log = ""
 build_seconds: Optional[float] = None
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+_launch_lock = threading.Lock()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -101,20 +109,29 @@ def _build(lib_path: Path) -> None:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+    """The kernels' shared library, built on first use (once, whichever
+    thread gets here first)."""
     global _lib
-    if _lib is None:
-        lib_path = BUILD_DIR / f"libreprotorch_kernels-{_digest()}.so"
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            _build(lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib_path = BUILD_DIR / f"libreprotorch_kernels-{_digest()}.so"
+            if not lib_path.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                _build(lib_path)
+            lib = ctypes.CDLL(str(lib_path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``; wrappers launch from several
+    threads, and ``+=`` on an attribute is not atomic."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 
 HEAD_DIMS = (32, 64, 112, 128)

@@ -10,6 +10,8 @@ it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import build
@@ -18,18 +20,25 @@ from repro_torch.kernels.ref import paged_attention_ref
 MAX_GROUP = 16      # query heads per KV head one block holds
 SPLIT_TOKENS = 256  # tokens per split; a multiple of the kernel's 32-token stage
 
-# per device: int32 arrival counters of the split merge, all zero between
-# launches (each merging block resets its own).  Launches on one stream
-# share them, as the serving step's do; two streams must not.
+# per (device, stream): int32 arrival counters of the split merge, all
+# zero between launches (each merging block resets its own).  Launches on
+# one stream run in order and share them; launches on two streams may run
+# at once, so each stream has its own.  Engines stepped from worker
+# threads look them up concurrently, hence the lock.
 _counters: dict = {}
+_counters_lock = threading.Lock()
 
 
-def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
-    c = _counters.get(device)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[device] = c
-    return c
+def _arrival_counters(device: torch.device, stream: int,
+                      n: int) -> torch.Tensor:
+    with _counters_lock:
+        c = _counters.get((device, stream))
+        if c is None or c.numel() < n:
+            # zeroed on ``stream`` (the caller's current stream), ahead of
+            # the launch that will use them
+            c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+            _counters[(device, stream)] = c
+        return c
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -59,26 +68,26 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         # nothing to attend: a zero grid dimension is a launch error
         return out.zero_()
     n_splits = -(-nb * bs // SPLIT_TOKENS)
-    part_acc = part_ml = counters = None      # passed as NULL
-    if n_splits > 1:
-        part_acc = torch.empty(b * kv * n_splits * g * hd,
-                               dtype=torch.float32, device=q.device)
-        part_ml = torch.empty(b * kv * n_splits * g * 2, dtype=torch.float32,
-                              device=q.device)
-        counters = _arrival_counters(q.device, b * kv)
     lib = build.load_library()
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part_acc = part_ml = counters = None      # passed as NULL
+        if n_splits > 1:
+            part_acc = torch.empty(b * kv * n_splits * g * hd,
+                                   dtype=torch.float32, device=q.device)
+            part_ml = torch.empty(b * kv * n_splits * g * 2,
+                                  dtype=torch.float32, device=q.device)
+            counters = _arrival_counters(q.device, stream, b * kv)
         rc = lib.paged_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
             *(None if t is None else t.data_ptr()
               for t in (part_acc, part_ml, counters)),
             b, kv, g, hd, nb, bs, n_splits, SPLIT_TOKENS,
-            build.dtype_code(q),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            build.dtype_code(q), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention: launch failed, cudaError {rc}")
-    paged_attention.launches += 1
+    build.count_launch(paged_attention)
     return out
 
 

@@ -60,7 +60,7 @@ def ragged_segment_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ragged_segment_attention: launch failed, "
                            f"cudaError {rc}")
-    ragged_segment_attention.launches += 1
+    build.count_launch(ragged_segment_attention)
     return out
 
 

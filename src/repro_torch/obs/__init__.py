@@ -1,4 +1,5 @@
-"""Observability: tracing and metrics (the parts the fused engine uses)."""
+"""Observability: tracing, metrics, critical-path and SLO analysis (the
+Perfetto export joins in a later slice)."""
 from repro_torch.obs.trace import (
     EVENT_KINDS,
     NULL_TRACER,
@@ -15,10 +16,28 @@ from repro_torch.obs.metrics import (
     merge_snapshots,
     rollup_by_role,
 )
+from repro_torch.obs.critical_path import (
+    CriticalPath,
+    StageSpan,
+    critical_path,
+    spans_from_events,
+    spans_from_requests,
+    stage_breakdown,
+)
+from repro_torch.obs.slo import (
+    SLO,
+    RequestSample,
+    percentile,
+    request_samples,
+    slo_report,
+)
 
 __all__ = [
     "EVENT_KINDS", "NULL_TRACER", "Event", "NullTracer", "TraceContext",
     "Tracer",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "merge_snapshots",
     "rollup_by_role",
+    "CriticalPath", "StageSpan", "critical_path", "spans_from_events",
+    "spans_from_requests", "stage_breakdown",
+    "SLO", "RequestSample", "percentile", "request_samples", "slo_report",
 ]

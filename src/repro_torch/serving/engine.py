@@ -39,6 +39,7 @@ from repro_torch.serving.batch_scheduler import (
     TokenPrefixMatcher,
     flatten_plan,
 )
+from repro_torch.serving.faults import InstanceCrashed
 from repro_torch.serving.kv_cache import BlockManager
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import Request
@@ -98,13 +99,20 @@ class PagedModelRunner:
     ``ragged_backend`` picks the lowering of the prefill-chunk attention
     separately (``"cuda"``, ``"ref"``, or the flatten-and-repeat
     ``"flat"``/``"flat_ref"``); it defaults to ``backend``.
+    ``donate_pool`` must stay True: the pool is always updated in place,
+    and the out-of-place baseline is not ported yet.
     """
 
     def __init__(self, model: LanguageModel, params: dict, num_blocks: int,
                  block_size: int, max_batch: int = 8,
                  backend: Optional[str] = None,
                  ragged_backend: Optional[str] = None,
+                 donate_pool: bool = True,
                  device=None):
+        if not donate_pool:
+            raise NotImplementedError(
+                "donate_pool=False: the out-of-place pool baseline is not "
+                "ported yet (ROADMAP.md Queue 1 item 1)")
         cfg = model.cfg
         assert model.uniform_kind == "attn", "paged runner serves attention archs"
         assert cfg.sliding_window is None, "windowed paged decode is not ported"
@@ -172,6 +180,16 @@ class PagedModelRunner:
         c.metrics = MetricsRegistry()
         c.n_dispatches = 0
         return c
+
+    @classmethod
+    def from_config(cls, model: LanguageModel, params: dict, config,
+                    backend: Optional[str] = None,
+                    device=None) -> "PagedModelRunner":
+        """Build a runner from a :class:`~repro_torch.serving.config.
+        ServingConfig` (the device, being placement rather than
+        configuration, is supplied separately)."""
+        return cls(model, params, backend=backend, device=device,
+                   **config.runner_kwargs())
 
     # -- fused ragged iteration: one step per engine iteration ----------------
     def run_iteration(self, batch: IterationBatch) -> torch.Tensor:
@@ -343,8 +361,13 @@ class LLMEngine:
                  enable_prefix_cache: bool = False,
                  policy: Optional[SchedulerPolicy] = None,
                  prefill_chunk_tokens: Optional[int] = None,
+                 fused_iteration: bool = True,
                  tracer: Tracer = NULL_TRACER,
                  role: str = "general"):
+        if not fused_iteration:
+            raise NotImplementedError(
+                "fused_iteration=False: the legacy per-chunk path is not "
+                "ported yet (ROADMAP.md Queue 1 item 1)")
         self.runner = runner
         self._pending: Optional[Tuple[IterationBatch, TokenBuffer]] = None
         self.bm = BlockManager(runner.num_blocks, runner.block_size)
@@ -356,6 +379,12 @@ class LLMEngine:
         self.clock = clock
         self.tracer = tracer
         self._next_tok: dict[int, int] = {}
+        # fault plane (serving/faults.py): wired by the cluster; when set,
+        # every composed iteration consults the injector mid-dispatch
+        self.faults = None
+        # wall seconds of the last dispatch+sync, written by the stepping
+        # thread — recovery's step-deadline check reads it post-collect
+        self.last_step_wall = 0.0
         self.sched = BatchScheduler(
             self.bm, policy=policy, prefix_cache=self.prefix_cache,
             matcher=TokenPrefixMatcher(), max_running=max_batch,
@@ -363,6 +392,23 @@ class LLMEngine:
             prefill_chunk_tokens=prefill_chunk_tokens,
             on_preempt=lambda r: self._next_tok.pop(r.req_id, None),
             tracer=tracer, instance_id=instance_id, role=role)
+
+    @classmethod
+    def from_config(cls, runner: PagedModelRunner, config, *,
+                    instance_id: int = 0, eos_token: int = -1,
+                    clock: Callable[[], float] = time.monotonic,
+                    policy: Optional[SchedulerPolicy] = None,
+                    tracer: Tracer = NULL_TRACER,
+                    role: Optional[str] = None) -> "LLMEngine":
+        """Build an engine from a :class:`~repro_torch.serving.config.
+        ServingConfig` (identity, clock, policy object and tracer are
+        runtime wiring, not configuration).  ``role`` overrides
+        ``config.role_of(instance_id)``."""
+        if role is None:
+            role = config.role_of(instance_id)
+        return cls(runner, instance_id=instance_id, eos_token=eos_token,
+                   clock=clock, policy=policy, tracer=tracer, role=role,
+                   **config.engine_kwargs())
 
     @property
     def role(self) -> str:
@@ -375,6 +421,22 @@ class LLMEngine:
     @property
     def running(self) -> List[Request]:
         return self.sched.running
+
+    # ------------------------------------------------- pending-token surface
+    # (live migration moves a mid-decode request's sampled-but-not-yet-fed
+    # token between engines; these keep it off _next_tok)
+    def pending_token(self, req_id: int) -> Optional[int]:
+        """The request's sampled-but-not-yet-fed next token, materialized
+        to a plain int (syncs a deferred :class:`TokenRef`), or None for a
+        request still mid-prefill."""
+        tok = self._next_tok.get(req_id)
+        return None if tok is None else int(tok)
+
+    def set_pending_token(self, req_id: int, tok: int):
+        self._next_tok[req_id] = int(tok)
+
+    def drop_pending_token(self, req_id: int):
+        self._next_tok.pop(req_id, None)
 
     @property
     def stats(self) -> SchedStats:
@@ -445,6 +507,18 @@ class LLMEngine:
         plan = self.sched.plan(self.clock())
         if plan is None:
             return False
+        if self.faults is not None:
+            # mid-dispatch fault point: the plan has already mutated
+            # scheduler state (chunk bookkeeping, decode growth), which is
+            # exactly what a real worker death leaves behind.  Non-crash
+            # effects land first so a storm of ooms still fences.
+            eff = self.faults.on_dispatch(self.instance_id)
+            if eff.oom:
+                self.sched.stats.recent_oom = True
+            if eff.delay_s > 0.0:
+                time.sleep(eff.delay_s)
+            if eff.crash is not None:
+                raise InstanceCrashed(self.instance_id, eff.crash.step)
         batch = flatten_plan(plan, self.bm, self._next_tok)
         self.runner.metrics.observe("iteration_tokens", batch.n_tokens)
         self.runner.metrics.observe("batch_occupancy", len(batch.segments))

@@ -11,6 +11,9 @@ input helpers below are shared with ``tests/test_torch_kernels.py``.
 Tolerances: f32 2e-5, bf16 2e-2, as ``tests/test_kernels.py``.
 """
 import dataclasses
+import gc
+import threading
+import weakref
 
 import numpy as np
 import pytest
@@ -216,3 +219,120 @@ def test_cuda_engine_matches_ref_drain(cuda):
                                                 r.output_tokens))
                                for r in done)
     assert outs["cuda"] == outs["ref"]
+
+
+def _stream_engines(cuda):
+    """Two engines on one card (reduced qwen3-1.7b, bf16, seeded weights),
+    each with 4 requests whose contexts span 2-4 of the decode kernel's
+    256-token splits, so every decode launch runs the split merge."""
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = LanguageModel(cfg)
+    params = model.init_params(torch.Generator(cuda).manual_seed(0), cuda)
+    runner = serving.PagedModelRunner(model, params, num_blocks=512,
+                                      block_size=16, max_batch=8, device=cuda)
+    engines = [serving.LLMEngine(r, instance_id=i, max_batch=8)
+               for i, r in enumerate((runner, runner.clone()))]
+    for i, e in enumerate(engines):
+        rng = np.random.default_rng(i)
+        for j in range(4):
+            toks = rng.integers(0, 500, int(rng.integers(300, 900)))
+            e.submit(serving.Request(
+                agent_name="a", msg_id=f"e{i}r{j}", prompt_len=len(toks),
+                prompt_tokens=toks.astype(np.int32), max_new_tokens=24))
+    return engines
+
+
+def _drain_on(engine, stream, out):
+    with torch.cuda.stream(stream):
+        done = engine.run_until_drained(4000)
+    out[engine.instance_id] = sorted(
+        (r.msg_id, tuple(int(t) for t in r.output_tokens)) for r in done)
+
+
+@pytest.mark.cuda
+def test_cuda_two_engines_on_two_streams_match_serial(cuda):
+    """Two engines stepped from two threads, each on its own stream, give
+    the same tokens as the same engines drained one after the other on
+    the default stream.  Their decode launches overlap on the card, so
+    the split merge's arrival counters must be per stream (per-device
+    counters let one stream's blocks count the other's arrivals)."""
+    serving.reset_request_ids()
+    serial = {}
+    for e in _stream_engines(cuda):
+        _drain_on(e, torch.cuda.current_stream(cuda), serial)
+    serving.reset_request_ids()
+    engines = _stream_engines(cuda)
+    before = paged_attention.launches
+    concurrent = {}
+    threads = [threading.Thread(target=_drain_on,
+                                args=(e, torch.cuda.Stream(cuda), concurrent))
+               for e in engines]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    torch.cuda.synchronize(cuda)
+    assert paged_attention.launches > before
+    assert concurrent == serial and len(serial) == 2
+
+
+@pytest.mark.cuda
+def test_cuda_crash_storm_recovers_and_frees_dead_pools(cuda):
+    """A 3-instance cluster on the card survives the crash storm of
+    tests/test_faults_recovery.py with the fault-free streams, and the
+    two dead instances' KV pools (67 MB each) leave device memory: no
+    reference to them survives, and the allocated bytes fall by at least
+    their size less 16 MiB (what a drain may keep, such as a new cuBLAS
+    workspace)."""
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = LanguageModel(cfg)
+    params = model.init_params(torch.Generator(cuda).manual_seed(0), cuda)
+    config = serving.ServingConfig(num_blocks=4096, block_size=16,
+                                   max_batch=4, n_instances=3, policy="fcfs",
+                                   prefix_caching=True)
+
+    def drain(plan):
+        from repro_torch.core import HardwareProfile, Orchestrator
+        serving.reset_request_ids()
+        orch = Orchestrator(hardware=HardwareProfile(
+            decode_tok_per_s=20.0, kv_capacity_tokens=4096 * 16))
+        cluster = serving.ServingCluster.from_config(
+            model, params, orch, config, faults=plan, device=cuda)
+        pool_bytes = cluster.engines[0].runner.metrics_snapshot()["pool_bytes"]
+        pools = [weakref.ref(e.runner._pool_buf) for e in cluster.engines]
+        rng = np.random.default_rng(7)
+        prefix = rng.integers(0, 500, 32)
+        for i in range(8):
+            toks = np.concatenate([prefix, rng.integers(0, 500, 9 + i)])
+            cluster.submit(serving.Request(
+                agent_name=f"a{i % 3}", msg_id=f"m{i}", prompt_len=len(toks),
+                prompt_tokens=toks.astype(np.int32), max_new_tokens=10,
+                arrival_time=float(i)))
+        torch.cuda.synchronize(cuda)
+        before = torch.cuda.memory_allocated(cuda)
+        done = cluster.drain()
+        cluster.close()
+        streams = {r.msg_id: [int(t) for t in r.output_tokens] for r in done}
+        snap = cluster.metrics_snapshot()
+        gc.collect()
+        torch.cuda.synchronize(cuda)
+        freed = before - torch.cuda.memory_allocated(cuda)
+        dead = sum(ref() is None for ref in pools)
+        return streams, snap, (freed, dead), pool_bytes
+
+    base, _, _, _ = drain(None)
+    plan = serving.FaultPlan.generate(5, [0, 1, 2], horizon=10, n_crashes=2,
+                                      spare=(0,))
+    streams, snap, (freed, dead), pool_bytes = drain(plan)
+    assert len(base) == 8 and streams == base
+    assert snap["n_crashes"] == 2 and snap["n_instances"] == 1
+    assert dead == 2
+    assert freed >= 2 * pool_bytes - 16 * 2**20, (freed, pool_bytes)
+
+
+@pytest.mark.cuda
+def test_cuda_quickstart_runs_on_the_card(cuda, capsys):
+    from repro_torch import quickstart
+    assert quickstart.main([]) == 0
+    assert "QUICKSTART OK" in capsys.readouterr().out

@@ -155,8 +155,15 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import repro_torch, repro_torch.serving, repro_torch.models, "
             "repro_torch.kernels, repro_torch.configs, repro_torch.obs, "
-            "repro_torch.core\n"
-            "import repro_torch.kernels.build\n"
+            "repro_torch.core, repro_torch.agents, repro_torch.quickstart\n"
+            "import repro_torch.kernels.build, repro_torch.serving.cluster, "
+            "repro_torch.serving.faults, repro_torch.serving.recovery, "
+            "repro_torch.serving.config, repro_torch.obs.slo, "
+            "repro_torch.obs.critical_path, repro_torch.agents.messaging\n"
+            "import repro_torch.core.balancer, repro_torch.core.dispatcher, "
+            "repro_torch.core.distributions, repro_torch.core.memory_model, "
+            "repro_torch.core.orchestrator, repro_torch.core.priority, "
+            "repro_torch.core.scheduler, repro_torch.core.workflow\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'\n")
