@@ -51,6 +51,22 @@ fails prints its error and the script exits non-zero.
              at 4 layers in float32, every LLM call replayed alone through
              one engine on the plain versions: streams must agree wherever
              the plain run's top-2 margin exceeds 1e-4.
+6. elastic   the elastic, disaggregated and shedding cluster at full width
+             (bf16; the launch counters are zeroed before its first run and
+             read after its last): the legacy per-chunk engine
+             (``fused_iteration=False``) drains the drain phase's requests;
+             an out-of-place pool (``donate_pool=False``, 512 blocks) moves
+             at every step and gives the in-place run's tokens bit for bit;
+             a 2-instance cluster retires instance 1 mid-decode through live
+             migration (``scale_down``), one gathered ``write_blocks`` per
+             target, the moved blocks read back bit-equal; a prefill and a
+             decode instance hand every request over; an autoscaler grows
+             a 1-instance cluster under a burst and shrinks it through
+             migration; a tight ``slo_e2e_s`` sheds part of a 32-request
+             burst and completes the rest; the tracer exports to a Chrome
+             trace and reads back loss-free.  Then, at 4 layers in float32,
+             the legacy, migrated and disaggregated streams against the
+             fused, unmigrated and colocated ones under the margin rule.
 
 Then the per-kernel summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -62,6 +78,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import importlib
 import json
 import statistics
 import subprocess
@@ -389,6 +406,22 @@ def phase_kernels(state, seed: int):
             *poison_paged(edge, 1e4, float("nan"))), out_edge),
             f"paged {name}: poison past the split-edge contexts changed "
             "the output")
+        # the legacy decode step's padded batch: dead rows with context 1
+        # and all-zero table rows, at full width and at a sweep shape
+        # (drawn from a generator of their own, so the timed shapes keep
+        # the contexts of earlier runs)
+        dead_rng = np.random.default_rng(seed + 1)
+        for shape, live, what in ((FULL_PAGED, 10, "full width"),
+                                  (SHAPES[2], 1, "sweep")):
+            dead = on_card(paged_case(
+                dead_rng, *shape, contexts=FULL_CONTEXTS
+                if shape is FULL_PAGED else None), tdt)
+            dead[3][live:] = 0
+            dead[4][live:] = 1
+            worst = max(worst, compare(
+                paged_attention(*dead), ref.paged_attention_ref(*dead), tol,
+                f"paged {name} dead rows ({what})"))
+            checks += 1
         small = on_card(paged_case(rng, 1, 2, 2, 64, 8, 4, 32), tdt)
         small[4] = torch.tensor([11], dtype=torch.int32, device=DEVICE)
         require(torch.equal(paged_attention(*poison_paged(small, 1e4,
@@ -519,12 +552,14 @@ def make_requests(mod, seed: int, vocab: int):
     return reqs[:4], reqs[4:]
 
 
-def drain(engine, waves, max_iters: int = 2000):
+def drain(engine, waves, max_iters: int = 2000, addr_seq=None):
     """Submit the first wave; submit the second once every first-wave
     request has its first token (so its system prompt is in the prefix
     cache); step until drained.  Returns (finished, iterations, the pool
-    addresses seen, wall seconds, per-iteration (has prefill chunks,
-    seconds))."""
+    addresses seen, wall seconds, per-iteration (has prefill chunks — None
+    on the legacy path, which composes no batch — seconds)).  The pool
+    address after each iteration is appended to ``addr_seq`` when
+    given."""
     import torch
     first, second = waves
     clock = engine.clock
@@ -544,11 +579,15 @@ def drain(engine, waves, max_iters: int = 2000):
         require(iters < max_iters, "drain did not finish")
         t_step = time.perf_counter()
         require(engine.dispatch_iteration(), "engine planned no iteration")
-        has_prefill = engine._pending[0].tokens_p.size > 0
+        batch = engine._pending
+        has_prefill = (batch[0].tokens_p.size > 0 if batch is not None
+                       else None)
         iters += 1
         done.extend(engine.collect(force_sync=True))
         steps.append((has_prefill, time.perf_counter() - t_step))
         addrs.add(engine.runner.pool_address())
+        if addr_seq is not None:
+            addr_seq.append(engine.runner.pool_address())
     torch.cuda.synchronize()
     return done, iters, addrs, time.perf_counter() - t0, steps
 
@@ -572,18 +611,20 @@ def served(cfg, seed: int):
     return model, model.init_params(gen, device=DEVICE)
 
 
-def runner_for(model, params, backend=None):
+def runner_for(model, params, backend=None, num_blocks=4096,
+               donate_pool=True):
     from repro_torch import serving
-    return serving.PagedModelRunner(model, params, num_blocks=4096,
+    return serving.PagedModelRunner(model, params, num_blocks=num_blocks,
                                     block_size=16, max_batch=16,
-                                    backend=backend, device=DEVICE)
+                                    backend=backend, donate_pool=donate_pool,
+                                    device=DEVICE)
 
 
-def engine_for(runner):
+def engine_for(runner, fused=True):
     from repro_torch import serving
     serving.reset_request_ids()
     return serving.LLMEngine(runner, max_batch=16, enable_prefix_cache=True,
-                             prefill_chunk_tokens=512)
+                             prefill_chunk_tokens=512, fused_iteration=fused)
 
 
 def device_busy(profile_events, wall_s: float):
@@ -662,6 +703,7 @@ def phase_drain(state, seed: int):
             f"more than one launch per layer and iteration: {launches}")
     require(runner.n_dispatches == iters,
             f"{runner.n_dispatches} dispatches for {iters} iterations")
+    state["fused_dispatches_per_iteration"] = runner.n_dispatches / iters
     require(addrs == {addr}, "the pool moved during the drain")
     require(len(done) == 16, f"{len(done)} of 16 requests finished")
     for r in done:
@@ -722,14 +764,16 @@ def phase_drain(state, seed: int):
     return out
 
 
-def record_margins(runner):
-    """Hook the runner so every iteration records, per real segment row,
+def record_margins(*runners):
+    """Hook the runners so every iteration records, per real segment row,
     the top-2 logit margin of its argmax and whether the logits were
-    finite.  Returns (log, undo)."""
+    finite.  The logits hook is shared: step the runners from one thread.
+    Returns (log, undo)."""
     import torch
     from repro_torch.serving import engine as engine_mod
     log, last = [], {}
-    orig_logits, orig_run = engine_mod.lm_logits, runner.run_iteration
+    orig_logits = engine_mod.lm_logits
+    origs = [(r, r.run_iteration) for r in runners]
 
     def logits_hook(params, x, cfg):
         logits = orig_logits(params, x, cfg)
@@ -738,19 +782,23 @@ def record_margins(runner):
         last["finite"] = torch.isfinite(logits).all()
         return logits
 
-    def run_hook(batch):
-        nxt = orig_run(batch)
-        log.append(([(s.req.msg_id, s.kind == "decode" or s.emits_token)
-                     for s in batch.segments], last["margin"],
-                    last["finite"]))
-        return nxt
+    def hooked(orig_run):
+        def run_hook(batch):
+            nxt = orig_run(batch)
+            log.append(([(s.req.msg_id, s.kind == "decode" or s.emits_token)
+                         for s in batch.segments], last["margin"],
+                        last["finite"]))
+            return nxt
+        return run_hook
 
     def undo():
         engine_mod.lm_logits = orig_logits
-        runner.run_iteration = orig_run
+        for runner, orig_run in origs:
+            runner.run_iteration = orig_run
 
     engine_mod.lm_logits = logits_hook
-    runner.run_iteration = run_hook
+    for runner, orig_run in origs:
+        runner.run_iteration = hooked(orig_run)
     return log, undo
 
 
@@ -764,6 +812,29 @@ def streams_and_margins(done, log, max_new: int):
                 margins.setdefault(msg, []).append(m[j])
     streams = {r.msg_id: [int(t) for t in r.output_tokens] for r in done}
     return streams, {k: v[:max_new] for k, v in margins.items()}
+
+
+def margin_rule(got, want, margins, what: str) -> dict:
+    """``got`` against ``want``: at the first token where a stream differs,
+    ``want``'s run must have had a top-2 margin at or below MARGIN."""
+    compared = identical = near_ties = 0
+    min_margin = float("inf")
+    for msg in sorted(want):
+        g, w, m = got[msg], want[msg], margins[msg]
+        require(len(g) == len(w) <= len(m), f"{what} {msg}: stream lengths")
+        for i in range(len(w)):
+            if g[i] != w[i]:
+                require(m[i] <= MARGIN, f"{what} {msg} token {i}: {g[i]} vs "
+                        f"{w[i]} at margin {m[i]}")
+                near_ties += 1
+                break
+            compared += 1
+            min_margin = min(min_margin, m[i])
+        else:
+            identical += 1
+    return {"streams": len(want), "identical_streams": identical,
+            "tokens_compared": compared, "near_tie_divergences": near_ties,
+            "min_margin_compared": min_margin}
 
 
 def phase_identity(state, seed: int):
@@ -795,21 +866,9 @@ def phase_identity(state, seed: int):
 
     cuda_streams, _, cuda_done = runs["cuda"]
     ref_streams, ref_margins, _ = runs["ref"]
-    compared = identical = near_ties = 0
-    min_margin = float("inf")
-    for msg in sorted(ref_streams):
-        c, r, m = cuda_streams[msg], ref_streams[msg], ref_margins[msg]
-        require(len(c) == len(r) == len(m) == 32, f"{msg}: stream lengths")
-        for i in range(32):
-            if c[i] != r[i]:
-                require(m[i] <= MARGIN, f"{msg} token {i}: cuda {c[i]} vs "
-                        f"ref {r[i]} at margin {m[i]}")
-                near_ties += 1
-                break
-            compared += 1
-            min_margin = min(min_margin, m[i])
-        else:
-            identical += 1
+    require(all(len(v) == 32 for v in ref_streams.values()),
+            "stream lengths")
+    agreement = margin_rule(cuda_streams, ref_streams, ref_margins, "cuda")
 
     # each request's first token against the dense prefill's argmax
     first_checked = first_ties = 0
@@ -825,10 +884,7 @@ def phase_identity(state, seed: int):
                 f"{r.msg_id}: first token {int(r.output_tokens[0])} vs "
                 f"prefill argmax {int(top.indices[0])} (margin {margin})")
         first_checked += 1
-    return {"layers": cfg.num_layers, "dtype": cfg.dtype,
-            "streams": len(ref_streams), "identical_streams": identical,
-            "tokens_compared": compared, "near_tie_divergences": near_ties,
-            "min_margin_compared": min_margin,
+    return {"layers": cfg.num_layers, "dtype": cfg.dtype, **agreement,
             "first_tokens_vs_prefill": first_checked,
             "first_token_ties_skipped": first_ties}
 
@@ -1159,6 +1215,535 @@ def phase_workflow(state, seed: int):
     return out
 
 
+# =============================================================================
+# phase 6: the elastic, disaggregated and shedding cluster
+# =============================================================================
+
+EL_BLOCKS = 2048          # per instance of the cluster runs: 3.76 GB pools
+EL_OOP_BLOCKS = 512       # the out-of-place pool: 0.94 GB copied per step
+EL_SHED_TASKS = 32
+EL_SHED_SLO_S = 8.0
+EL_AUTOSCALE = dict(min_instances=1, max_instances=3, queue_high=2.0,
+                    queue_low=0.5, up_patience=2, down_patience=3,
+                    decision_period_s=0.2, cooldown_s=0.2)
+
+
+def el_cluster(model, params, **cfg):
+    """A ``ServingCluster.from_config`` of full-width-like instances:
+    2048 blocks of 16 tokens, 16 sequences, prefix cache, 512-token
+    chunks, FCFS; ``cfg`` overrides any of it and adds cluster kwargs
+    (``clock``, ``tracer``, ``pipelined``)."""
+    from repro_torch.core import HardwareProfile, Orchestrator
+    from repro_torch.serving import (
+        ServingCluster,
+        ServingConfig,
+        reset_request_ids,
+    )
+    kw = {k: cfg.pop(k) for k in ("clock", "tracer", "pipelined")
+          if k in cfg}
+    config = dict(n_instances=2, num_blocks=EL_BLOCKS, block_size=16,
+                  max_batch=16, prefix_caching=True, prefill_chunk_tokens=512,
+                  policy="fcfs")
+    config.update(cfg)
+    config = ServingConfig(**config)
+    reset_request_ids()
+    orch = Orchestrator(hardware=HardwareProfile(
+        kv_capacity_tokens=config.kv_capacity_tokens))
+    return ServingCluster.from_config(model, params, orch, config,
+                                      device=DEVICE, **kw)
+
+
+def cluster_run(cluster, reqs, on_step=None, max_steps: int = 20000):
+    """Submit ``reqs`` at once and step until drained; ``on_step(cluster,
+    step)`` runs after every step.  Returns (finished, steps, wall s)."""
+    import torch
+    t0 = time.perf_counter()
+    for r in reqs:
+        r.arrival_time = cluster.clock()
+        cluster.submit(r)
+    done, steps = [], 0
+    while cluster.has_work:
+        require(steps < max_steps, "cluster did not drain")
+        done.extend(cluster.step())
+        steps += 1
+        if on_step is not None:
+            on_step(cluster, steps)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    cluster.close()
+    return done, steps, time.perf_counter() - t0
+
+
+def all_requests(mod, seed: int, vocab: int):
+    first, second = make_requests(mod, seed, vocab)
+    return first + second
+
+
+def streams_of(done):
+    return {r.msg_id: [int(t) for t in r.output_tokens] for r in done}
+
+
+def divergences(got, want) -> int:
+    """Streams of ``got`` that differ from ``want`` anywhere."""
+    require(set(got) == set(want), "different requests finished")
+    return sum(got[m] != want[m] for m in want)
+
+
+
+
+class Probe:
+    """Wraps ``module.name`` so each call records its result, host
+    seconds (the device synced at the end) and ``extra(result, args)``."""
+
+    def __init__(self, module, name: str, extra=None):
+        self.module, self.name, self.extra = module, name, extra
+        self.orig = getattr(module, name)
+        self.calls = []
+
+        def probed(*a, **kw):
+            import torch
+            t = time.perf_counter()
+            out = self.orig(*a, **kw)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            rec = {"s": time.perf_counter() - t}
+            if self.extra is not None:
+                rec.update(self.extra(out, a))
+            self.calls.append(rec)
+            return out
+
+        setattr(module, name, probed)
+
+    def close(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def tpot_median(done) -> float:
+    return statistics.median((r.finish_time - r.first_token_time)
+                             / max(1, r.output_len - 1) for r in done)
+
+
+def el_legacy(model, params, seed: int, vocab: int) -> dict:
+    """The legacy per-chunk engine drains the drain phase's requests."""
+    from repro_torch import serving
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    runner = runner_for(model, params)
+    eng = engine_for(runner, fused=False)
+    p0 = paged_attention.launches
+    r0 = ragged_segment_attention.launches
+    done, iters, addrs, wall, _ = drain(eng, make_requests(serving, seed,
+                                                           vocab))
+    require(len(done) == 16, f"legacy: {len(done)} of 16 finished")
+    require(all(len(r.output_tokens) == 32 for r in done),
+            "legacy: short streams")
+    require(len(addrs) == 1, "legacy: the in-place pool moved")
+    paged = paged_attention.launches - p0
+    require(paged > 0, "legacy: decode_batch never launched the kernel")
+    require(ragged_segment_attention.launches == r0,
+            "legacy: the per-chunk path launched the ragged kernel")
+    return {"requests": len(done), "iterations": iters,
+            "dispatches": runner.n_dispatches,
+            "dispatches_per_iteration": runner.n_dispatches / iters,
+            "wall_s": wall, "tpot_median_s": tpot_median(done),
+            "ttft_median_s": statistics.median(
+                r.first_token_time - r.arrival_time for r in done),
+            "paged_launches_from_decode_batch": paged,
+            "jit_cache_size": runner.jit_cache_size()}
+
+
+def el_out_of_place(model, params, seed: int, vocab: int) -> dict:
+    """``donate_pool=False`` at 512 blocks against the in-place pool on
+    the same 8 requests: the address moves at every step, the copied
+    bytes are counted, and the bf16 streams are equal bit for bit."""
+    from repro_torch import serving
+    runs = {}
+    for donate in (True, False):
+        runner = runner_for(model, params, num_blocks=EL_OOP_BLOCKS,
+                            donate_pool=donate)
+        eng = engine_for(runner)
+        first, second = make_requests(serving, seed, vocab)
+        seq = [runner.pool_address()]
+        done, iters, _, wall, _ = drain(eng, (first, second[:4]),
+                                        addr_seq=seq)
+        require(len(done) == 8, f"out-of-place: {len(done)} of 8 finished")
+        moved = sum(a != b for a, b in zip(seq, seq[1:]))
+        snap = runner.metrics_snapshot()
+        runs[donate] = {"iterations": iters, "wall_s": wall,
+                        "steps_that_moved_the_pool": moved,
+                        "pool_bytes": snap["pool_bytes"],
+                        "pool_bytes_copied": snap.get("pool_bytes_copied",
+                                                      0.0),
+                        "n_preempted": eng.stats.n_preempted,
+                        "streams": streams_of(done)}
+        del runner, eng
+        release_pools()
+    inplace, copied = runs[True], runs[False]
+    require(inplace["steps_that_moved_the_pool"] == 0,
+            "the in-place pool moved")
+    require(copied["steps_that_moved_the_pool"] == copied["iterations"],
+            "the out-of-place pool stayed put at some step")
+    require(copied["pool_bytes_copied"] >= copied["iterations"]
+            * copied["pool_bytes"], "copied bytes under one pool a step")
+    require(copied["streams"] == inplace["streams"],
+            "out-of-place bf16 streams differ from the in-place run's")
+    for r in runs.values():
+        r.pop("streams")
+    return {"num_blocks": EL_OOP_BLOCKS, "requests": 8,
+            "bytes_copied_per_iteration": copied["pool_bytes_copied"]
+            / copied["iterations"],
+            "in_place": inplace, "out_of_place": copied,
+            "bf16_streams_equal": True}
+
+
+def el_migration(model, params, seed: int, vocab: int, tracer,
+                 pipelined=True):
+    """A 2-instance cluster drains the 16 requests and retires instance 1
+    once one of its requests has 4 tokens, checking the moved blocks
+    read back bit-equal from the target's pool.  Returns (report,
+    streams)."""
+    from repro_torch import serving
+    migration = importlib.import_module("repro_torch.serving.migration")
+    cluster = el_cluster(model, params, tracer=tracer, pipelined=pipelined)
+    rec = {}
+
+    def extra(out, args):
+        source, target = args[:2]
+        snaps, skipped = out
+        return {"snaps": snaps, "target": target, "skipped": len(skipped),
+                "source_pool": source.runner.pool_address(),
+                "target_pool": target.runner.pool_address()}
+
+    def on_step(c, step):
+        if rec or len(c.engines) < 2:
+            return
+        e1 = c._by_id[1]
+        if not any(r.output_len >= 4 for r in e1.sched.running):
+            return
+        rec["running"] = len(e1.sched.running)
+        rec["waiting"] = len(e1.sched.waiting)
+        rec["pools_before"] = {e.instance_id: e.runner.pool_address()
+                               for e in c.engines}
+        rec["target_dispatches_before"] = c._by_id[0].runner.n_dispatches
+        probe = Probe(migration, "migrate_many", extra)
+        try:
+            t = time.perf_counter()
+            c.scale_down(1)
+            rec["scale_down_s"] = time.perf_counter() - t
+        finally:
+            probe.close()
+        rec["calls"] = probe.calls
+        rec["step"] = step
+        rec["target_pool_after"] = c._by_id[0].runner.pool_address()
+        # the moved blocks, read back from the target's pool before it
+        # steps again, against the snapshots' bits
+        rec["read_back_equal"] = all(
+            np.array_equal(call["target"].runner.read_blocks(
+                call["target"].bm.block_table(s.req.req_id)[
+                    s.n_cached_blocks:call["target"].bm.blocks_needed(
+                        s.n_resident_tokens)]),
+                s.kv[:, :, s.n_cached_blocks:call["target"].bm.blocks_needed(
+                    s.n_resident_tokens)])
+            for call in probe.calls for s in call["snaps"])
+
+    done, steps, wall = cluster_run(cluster,
+                                    all_requests(serving, seed, vocab),
+                                    on_step)
+    require(len(done) == 16, f"migration: {len(done)} of 16 finished")
+    require(rec, "instance 1 never had a request 4 tokens in")
+    calls = rec.pop("calls")
+    require(len(calls) == 1, f"{len(calls)} migrate_many calls for one target")
+    call = calls[0]
+    moved = len(call["snaps"])
+    require(moved == rec["running"] and call["skipped"] == 0,
+            f"moved {moved} of {rec['running']} running requests")
+    require(rec["read_back_equal"],
+            "migrated blocks read back unequal to the snapshot bits")
+    require(call["source_pool"] == rec["pools_before"][1]
+            and call["target_pool"] == rec["pools_before"][0]
+            == rec["target_pool_after"], "a pool moved during migration")
+    snap = cluster.metrics_snapshot()
+    require(snap["migration_dispatches"] == 1,
+            f"{snap['migration_dispatches']} write dispatches for one target")
+    return ({"requests": len(done), "steps": steps, "wall_s": wall,
+             "scaled_down_at_step": rec["step"],
+             "migrated_requests": int(snap["n_migrations"]),
+             "requeued_waiting": rec["waiting"],
+             "migrated_bytes": int(snap["migrated_bytes"]),
+             "migration_dispatches": int(snap["migration_dispatches"]),
+             "transfer_s": call["s"], "scale_down_s": rec["scale_down_s"],
+             "pool_addresses_stable": True,
+             "blocks_read_back_bit_equal": True},
+            streams_of(done))
+
+
+def el_unmigrated(model, params, seed: int, vocab: int, pipelined=True,
+                  margins=None):
+    """The 16 requests on a 2-instance general cluster, never resized: the
+    migration run's and the disaggregated run's baseline.  With
+    ``margins`` (a list), the serial loop records the runners' margins
+    into it."""
+    from repro_torch import serving
+    cluster = el_cluster(model, params, pipelined=pipelined)
+    if margins is not None:
+        require(not pipelined, "margins need the serial loop")
+        log, undo = record_margins(*(e.runner for e in cluster.engines))
+        margins.append(log)
+    try:
+        done, _, wall = cluster_run(cluster,
+                                    all_requests(serving, seed, vocab))
+    finally:
+        if margins is not None:
+            undo()
+    require(len(done) == 16, "unmigrated run incomplete")
+    return streams_of(done), wall
+
+
+def el_disagg(model, params, seed: int, vocab: int, pipelined=True):
+    """Instance 0 prefills, instance 1 decodes every request; each sweep
+    that hands requests over spends one ``write_blocks``."""
+    from repro_torch import serving
+    # the module (the package exports a function of the same name)
+    handoff = importlib.import_module("repro_torch.serving.handoff")
+    cluster = el_cluster(model, params, pipelined=pipelined,
+                         roles=("prefill", "decode"))
+    probe = Probe(handoff, "drive_handoffs", lambda out, a: dict(out))
+    try:
+        done, steps, wall = cluster_run(cluster,
+                                        all_requests(serving, seed, vocab))
+    finally:
+        probe.close()
+    require(len(done) == 16, f"disaggregation: {len(done)} of 16 finished")
+    require(all(r.instance_id == 1 for r in done),
+            "a request finished off the decode instance")
+    snap = cluster.metrics_snapshot()
+    require(snap["n_handoffs"] == 16 and snap["n_stranded"] == 0,
+            f"{snap['n_handoffs']} handoffs, {snap['n_stranded']} stranded")
+    require(snap["prefill0.n_admitted"] == 16
+            and snap["decode1.n_finished"] == 16,
+            "every request must be prefilled on 0 and decoded on 1")
+    sweeps = [c for c in probe.calls if c["n_handoffs"]]
+    require(all(c["handoff_dispatches"] == 1 for c in sweeps),
+            "a (source, target) sweep spent more than one dispatch")
+    return ({"requests": len(done), "steps": steps, "wall_s": wall,
+             "handoffs": int(snap["n_handoffs"]),
+             "handoff_bytes": int(snap["handoff_bytes"]),
+             "handoff_dispatches": int(snap["handoff_dispatches"]),
+             "sweeps_with_handoffs": len(sweeps),
+             "dispatches_per_sweep": 1,
+             "handoff_s": sum(c["s"] for c in sweeps),
+             "handoff_s_max_sweep": max(c["s"] for c in sweeps),
+             "tpot_median_s": tpot_median(done)},
+            streams_of(done))
+
+
+def el_autoscale(model, params, seed: int, vocab: int) -> dict:
+    """A 1-instance cluster (4 sequences an instance) with an autoscaler
+    bounded to 1-3 takes the 16 requests at once on a clock that
+    advances 0.25 s a step: it grows, then shrinks back through
+    migration once calm, and every request finishes."""
+    from repro_torch import serving
+    from repro_torch.serving import Autoscaler, AutoscalerConfig
+    t = {"now": 0.0}
+    cluster = el_cluster(model, params, n_instances=1, max_batch=4,
+                         clock=lambda: t["now"])
+    cluster.attach_autoscaler(Autoscaler(AutoscalerConfig(**EL_AUTOSCALE)))
+    peak = [1]
+
+    def on_step(c, step):
+        t["now"] += 0.25
+        peak[0] = max(peak[0], c.n_instances)
+
+    reqs = all_requests(serving, seed, vocab)
+    done, steps, wall = cluster_run(cluster, reqs, on_step)
+    for _ in range(200):                  # the calm tail
+        if cluster.n_instances == 1:
+            break
+        t["now"] += 0.25
+        done.extend(cluster.step())
+    cluster.close()
+    hist = cluster.autoscaler.history
+    snap = cluster.metrics_snapshot()
+    require(sorted(r.msg_id for r in done) == sorted(r.msg_id for r in reqs),
+            "the autoscaled cluster lost or duplicated a request")
+    require(any(k == "up" for _, k, _, _ in hist), f"never scaled up: {hist}")
+    require(any(k == "down" for _, k, _, _ in hist) and
+            cluster.n_instances == 1, f"never shrank back: {hist}")
+    require(snap["n_migrations"] >= 1, "scale-down migrated nothing")
+    return {"requests": len(done), "steps": steps, "wall_s": wall,
+            "config": EL_AUTOSCALE, "peak_instances": peak[0],
+            "history": [[round(ts, 2), k, iid, n] for ts, k, iid, n in hist],
+            "migrated_requests": int(snap["n_migrations"]),
+            "migrated_bytes": int(snap["migrated_bytes"]),
+            "migration_dispatches": int(snap["migration_dispatches"])}
+
+
+def shed_requests(mod, seed: int, vocab: int):
+    """The QA experts' calls of the workflow phase, 32 at once: a
+    1024-token system prompt per expert, questions of 64-512 tokens, 64
+    new tokens."""
+    rng = np.random.default_rng(seed)
+    system = {a: rng.integers(0, vocab, WF_SYSTEM[a]).astype(np.int32)
+              for a in ("MathAgent", "HumanitiesAgent")}
+    out = []
+    for i in range(EL_SHED_TASKS):
+        a = ("MathAgent", "HumanitiesAgent")[i % 2]
+        q = rng.integers(0, vocab, int(rng.integers(*WF_QUESTION)))
+        toks = np.concatenate([system[a], q]).astype(np.int32)
+        out.append(mod.Request(agent_name=a, msg_id=f"s{i:02d}",
+                               prompt_len=len(toks), prompt_tokens=toks,
+                               max_new_tokens=WF_NEW[a],
+                               shared_prefix_len=WF_SYSTEM[a]))
+    return out
+
+
+def el_shed(model, params, seed: int, vocab: int) -> dict:
+    """One instance, ``slo_e2e_s`` of EL_SHED_SLO_S seconds, the 32-call
+    burst: the valve opens, sheds, and every call not shed completes."""
+    from repro_torch import serving
+    cluster = el_cluster(model, params, n_instances=1,
+                         slo_e2e_s=EL_SHED_SLO_S)
+    reqs = shed_requests(serving, seed, vocab)
+    done, steps, wall = cluster_run(cluster, reqs)
+    require(sorted(r.msg_id for r in done) == sorted(r.msg_id for r in reqs),
+            "the shedding cluster lost or duplicated a request")
+    shed = [r for r in done if r.state is serving.RequestState.SHED]
+    served_ok = [r for r in done if r.state is not serving.RequestState.SHED]
+    require(shed, "the burst never opened the valve")
+    require(all(r.output_len == r.max_new_tokens for r in served_ok),
+            "a request that was not shed did not complete")
+    in_slo = [r for r in served_ok
+              if r.finish_time - r.arrival_time <= EL_SHED_SLO_S]
+    return {"requests": len(reqs), "slo_e2e_s": EL_SHED_SLO_S,
+            "steps": steps, "wall_s": wall, "shed": len(shed),
+            "completed": len(served_ok), "completed_in_slo": len(in_slo),
+            "goodput": len(in_slo) / len(reqs),
+            "e2e_median_completed_s": statistics.median(
+                r.finish_time - r.arrival_time for r in served_ok)
+            if served_ok else None}
+
+
+def el_export(tracer) -> dict:
+    """The migration run's trace through the Chrome-trace export and the
+    loss-free dict round trip."""
+    from repro_torch.obs import (
+        events_from_dicts,
+        events_to_dicts,
+        to_chrome_trace,
+        validate_chrome_trace,
+    )
+    events = tracer.events()
+    require(events, "the tracer recorded nothing")
+    back = events_from_dicts(json.loads(json.dumps(events_to_dicts(events))))
+    require([tuple(e) for e in back] == [tuple(e) for e in events],
+            "the event round trip lost something")
+    trace = to_chrome_trace(events, dropped=tracer.dropped())
+    problems = validate_chrome_trace(trace)
+    require(not problems, f"invalid Chrome trace: {problems[:3]}")
+    kinds = {}
+    for e in events:
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    return {"events": len(events), "dropped": tracer.dropped(),
+            "trace_events": len(trace["traceEvents"]),
+            "by_kind": dict(sorted(kinds.items()))}
+
+
+def phase_elastic(state, seed: int):
+    import torch
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    from repro_torch.obs import Tracer
+    release_pools()
+    cfg = full_config()
+    model, params = served(cfg, seed)
+    vocab = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    ragged_segment_attention.launches = 0
+    out = {"model": "qwen3-1.7b", "layers": cfg.num_layers,
+           "dtype": cfg.dtype, "card": state["smi"]}
+    tracer = Tracer()
+
+    def counted(key, run):
+        """Run one part; its report gains the kernel launches it made."""
+        before = (paged_attention.launches,
+                  ragged_segment_attention.launches)
+        result = run()
+        report = result[0] if isinstance(result, tuple) else result
+        report["kernel_launches"] = {
+            "paged_attention": paged_attention.launches - before[0],
+            "ragged_segment_attention":
+                ragged_segment_attention.launches - before[1]}
+        out[key] = report
+        release_pools()
+        return result
+
+    counted("legacy", lambda: el_legacy(model, params, seed, vocab))
+    out["legacy"]["fused_dispatches_per_iteration"] = state[
+        "fused_dispatches_per_iteration"]
+    counted("out_of_place",
+            lambda: el_out_of_place(model, params, seed, vocab))
+    _, migrated = counted("migration", lambda: el_migration(
+        model, params, seed, vocab, tracer))
+    unmigrated, wall = el_unmigrated(model, params, seed, vocab)
+    release_pools()
+    out["migration"]["bf16_streams_diverged_from_unmigrated"] = divergences(
+        migrated, unmigrated)
+    out["migration"]["unmigrated_wall_s"] = wall
+    counted("disaggregation",
+            lambda: el_disagg(model, params, seed, vocab))
+    counted("autoscaler", lambda: el_autoscale(model, params, seed, vocab))
+    counted("shedder", lambda: el_shed(model, params, seed + 3, vocab))
+    launches = {"paged_attention": paged_attention.launches,
+                "ragged_segment_attention": ragged_segment_attention.launches}
+    state["elastic_launches"] = launches
+    require(min(launches.values()) > 0, f"a kernel never launched: {launches}")
+    out["kernel_launches"] = launches
+    out["export"] = el_export(tracer)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, params, tracer
+    release_pools()
+
+    # float32 at 4 layers: legacy against fused, migrated against
+    # unmigrated, disaggregated against colocated, under the margin rule
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    model32, params32 = served(cfg32, seed)
+    from repro_torch import serving
+    fused_runner = runner_for(model32, params32)
+    log, undo = record_margins(fused_runner)
+    try:
+        fused = drain(engine_for(fused_runner),
+                      make_requests(serving, seed, cfg32.vocab_size))[0]
+    finally:
+        undo()
+    want, margins = streams_and_margins(fused, log, 32)
+    legacy = drain(engine_for(runner_for(model32, params32), fused=False),
+                   make_requests(serving, seed, cfg32.vocab_size))[0]
+    check = {"layers": 4, "legacy_vs_fused": margin_rule(
+        streams_of(legacy), want, margins, "legacy")}
+    del fused_runner
+    release_pools()
+    logs = []
+    want, _ = el_unmigrated(model32, params32, seed, cfg32.vocab_size,
+                            pipelined=False, margins=logs)
+    margins = streams_and_margins([], logs[0], 32)[1]
+    _, got = el_migration(model32, params32, seed, cfg32.vocab_size,
+                          Tracer(), pipelined=False)
+    check["migrated_vs_unmigrated"] = margin_rule(got, want, margins,
+                                                  "migrated")
+    release_pools()
+    logs = []
+    want, _ = el_unmigrated(model32, params32, seed, cfg32.vocab_size,
+                            pipelined=False, margins=logs)
+    margins = streams_and_margins([], logs[0], 32)[1]
+    _, got = el_disagg(model32, params32, seed, cfg32.vocab_size,
+                       pipelined=False)
+    check["disaggregated_vs_colocated"] = margin_rule(got, want, margins,
+                                                      "disaggregated")
+    out["float32_check"] = check
+    return out
+
+
 def kernels_line(state):
     rows = []
     for name, src, replaces, bodies in (
@@ -1175,9 +1760,10 @@ def kernels_line(state):
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": state["workflow_launches"][name],
+            "launches": state["elastic_launches"][name],
             "launches_by_path": {"drain": state["launches"][name],
-                                 "workflow": state["workflow_launches"][name]},
+                                 "workflow": state["workflow_launches"][name],
+                                 "elastic": state["elastic_launches"][name]},
             "max_abs_err": state["errs"][name]["bfloat16_full"],
             "ms": t["kernel_ms"], "plain_ms": t["ref_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1225,7 +1811,8 @@ def main(argv=None) -> int:
               ("kernels", lambda: phase_kernels(state, args.seed)),
               ("drain", lambda: phase_drain(state, args.seed)),
               ("identity", lambda: phase_identity(state, args.seed)),
-              ("workflow", lambda: phase_workflow(state, args.seed)))
+              ("workflow", lambda: phase_workflow(state, args.seed)),
+              ("elastic", lambda: phase_elastic(state, args.seed)))
     for name, run in phases:
         t0 = time.perf_counter()
         try:

@@ -1,6 +1,6 @@
 """GQA attention for the uniform-attention decoders: the QKV projection
-(with qk-norm) used by the fused serving step, and dense causal attention
-for the prefill oracle.
+(with qk-norm) used by the serving steps, dense causal attention for the
+prefill oracle, and one-token decode over a dense cache.
 
 Conventions: activations (..., S, d); q/k/v (..., S, H, hd).  All softmax
 math in fp32.  Sliding-window and cross attention join with the model
@@ -90,3 +90,25 @@ def causal_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if return_kv:
         return o, (k, v)
     return o
+
+
+def decode_attention(p: dict, x: torch.Tensor, cache_kv: torch.Tensor,
+                     pos: int, cfg: ModelConfig):
+    """One-token decode.  x (B, 1, d); cache_kv (2, B, Smax, KV, hd); pos =
+    the slot the new token's K/V is written to (the number of tokens
+    already in the cache).  Returns (out (B, 1, d), updated cache_kv); the
+    cache passed in is not modified."""
+    b, smax = x.shape[0], cache_kv.shape[2]
+    positions = torch.tensor([pos], device=x.device)
+    sin, cos = rope_at(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    q, k, v = _project_qkv(p, x, x, cfg)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    cache_kv = cache_kv.clone()
+    cache_kv[0, :, pos] = k[:, 0].to(cache_kv.dtype)
+    cache_kv[1, :, pos] = v[:, 0].to(cache_kv.dtype)
+    k_pos = torch.arange(smax, device=x.device)
+    bias = torch.where(k_pos <= pos, 0.0, NEG_INF)
+    probs = torch.softmax(_gqa_scores(q, cache_kv[0]) + bias, dim=-1)
+    out = _gqa_out(probs, cache_kv[1]).reshape(b, 1, -1)
+    return out @ p["wo"], cache_kv

@@ -9,6 +9,7 @@ same weights (``models/convert.py`` carries them across).
 Public entry points:
   init_params(generator, device)   -> params (seeded torch initialiser)
   prefill(params, tokens)          -> (logits, cache)   dense causal forward
+  decode_step(params, cache, tok)  -> (logits, cache)   one token, dense cache
 
 MoE, SSM, hybrid and encoder-decoder families raise
 ``NotImplementedError``: they are ported after the serving path.
@@ -95,6 +96,28 @@ class LanguageModel:
         x, kv = self._forward_seq(params, tokens)
         logits = lm_logits(params, x[:, -1], self.cfg)
         return logits, {"kv": kv, "pos": tokens.shape[1]}
+
+    @torch.no_grad()
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
+        """tokens (B, 1) -> (logits (B, V), updated cache).  ``cache`` is
+        what :meth:`prefill` returns, its ``kv`` padded along the sequence
+        axis to hold the new token at slot ``cache["pos"]``."""
+        cfg = self.cfg
+        pos = int(cache["pos"])
+        x = embed_tokens(params, tokens).to(self.dtype)
+        new_kv = []
+        for i in range(cfg.num_layers):
+            lp = layer_slice(params["layers"], i)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            o, kv = attn.decode_attention(lp["attn"], h, cache["kv"][i], pos,
+                                          cfg)
+            x = x + o
+            h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + swiglu(h2, **lp["ffn"])
+            new_kv.append(kv)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = lm_logits(params, x[:, 0], cfg)
+        return logits, dict(cache, kv=torch.stack(new_kv), pos=pos + 1)
 
 
 def build_model(cfg: ModelConfig) -> LanguageModel:

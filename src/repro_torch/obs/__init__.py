@@ -1,5 +1,4 @@
-"""Observability: tracing, metrics, critical-path and SLO analysis (the
-Perfetto export joins in a later slice)."""
+"""Observability: tracing, metrics, critical-path and SLO analysis."""
 from repro_torch.obs.trace import (
     EVENT_KINDS,
     NULL_TRACER,
@@ -31,6 +30,13 @@ from repro_torch.obs.slo import (
     request_samples,
     slo_report,
 )
+from repro_torch.obs.export import (
+    events_from_dicts,
+    events_to_dicts,
+    to_chrome_trace,
+    validate_chrome_trace,
+    write_chrome_trace,
+)
 
 __all__ = [
     "EVENT_KINDS", "NULL_TRACER", "Event", "NullTracer", "TraceContext",
@@ -40,4 +46,6 @@ __all__ = [
     "CriticalPath", "StageSpan", "critical_path", "spans_from_events",
     "spans_from_requests", "stage_breakdown",
     "SLO", "RequestSample", "percentile", "request_samples", "slo_report",
+    "events_from_dicts", "events_to_dicts", "to_chrome_trace",
+    "validate_chrome_trace", "write_chrome_trace",
 ]

@@ -1,3 +1,10 @@
+from repro_torch.serving.autoscaler import (
+    Autoscaler,
+    AutoscalerConfig,
+    ClusterSignals,
+    InstanceSignal,
+    signals_from_cluster,
+)
 from repro_torch.serving.batch_scheduler import (
     BatchScheduler,
     IterationBatch,
@@ -27,7 +34,21 @@ from repro_torch.serving.faults import (
     InstanceCrashed,
     TransferFault,
 )
+from repro_torch.serving.handoff import (
+    HandoffError,
+    decode_targets,
+    drive_handoffs,
+    handoff,
+)
 from repro_torch.serving.kv_cache import BlockManager, NoFreeBlocks
+from repro_torch.serving.migration import (
+    MigrationError,
+    RequestSnapshot,
+    migrate,
+    migrate_many,
+    restore_request,
+    snapshot_request,
+)
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixCacheStats
 from repro_torch.serving.recovery import (
     LoadShedder,
@@ -51,6 +72,11 @@ __all__ = ["BatchScheduler", "IterationBatch", "IterationPlan",
            "CompletionRecord", "Request", "RequestPhase", "RequestState",
            "reset_request_ids",
            "ServingConfig", "SIM_FIELD_MAP", "ROLES",
+           "Autoscaler", "AutoscalerConfig", "ClusterSignals",
+           "InstanceSignal", "signals_from_cluster",
+           "MigrationError", "RequestSnapshot", "migrate", "migrate_many",
+           "restore_request", "snapshot_request",
+           "HandoffError", "handoff", "decode_targets", "drive_handoffs",
            "FAULT_KINDS", "DispatchEffects", "FaultInjector", "FaultPlan",
            "FaultSpec", "InstanceCrashed", "TransferFault",
            "LoadShedder", "RecoveryManager", "RecoveryRecord"]

@@ -13,8 +13,11 @@ On the reduced qwen3-1.7b in fp32, with the JAX weights carried across:
   ``dispatcher.on_oom``; ``oom_feedback=False`` leaves fencing dead;
 * the dispatcher's admit probe is ``BatchScheduler.can_admit``;
 * engines sharing one runner are refused;
-* every path the port defers raises ``NotImplementedError`` naming its
-  ``ROADMAP.md`` item.
+* ``from_config`` builds legacy (``fused_iteration=False``) and
+  out-of-place (``donate_pool=False``) clusters that drain to the JAX
+  package's streams, and arms the load shedder for ``slo_e2e_s``;
+* the tensor-parallel paths the port defers raise
+  ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 import dataclasses
 import threading
@@ -356,7 +359,7 @@ def test_pending_token_surface(models):
 
 
 # =============================================================================
-# deferred paths
+# from_config knobs of the elastic slice, against the JAX package's cluster
 # =============================================================================
 
 
@@ -369,22 +372,60 @@ def _from_config(models, **cfg):
                                                device="cpu")
 
 
+def _from_config_pair(models, **cfg):
+    """The same config built by both packages, on ticking clocks."""
+    config = dict(num_blocks=24, block_size=8, max_batch=4, n_instances=2,
+                  prefix_caching=True, prefill_chunk_tokens=8, **cfg)
+    out = {}
+    for mod in (jserving, tserving):
+        mod.reset_request_ids()
+        c = mod.ServingConfig(**config)
+        if mod is jserving:
+            orch = JaxOrchestrator(hardware=JaxHardwareProfile(
+                decode_tok_per_s=20.0,
+                kv_capacity_tokens=c.kv_capacity_tokens))
+            out[mod] = jserving.ServingCluster.from_config(
+                models[0], models[1], orch, c, clock=_ticks())
+        else:
+            orch = Orchestrator(hardware=HardwareProfile(
+                decode_tok_per_s=20.0,
+                kv_capacity_tokens=c.kv_capacity_tokens))
+            out[mod] = tserving.ServingCluster.from_config(
+                models[2], models[3], orch, c, clock=_ticks(), device="cpu")
+    return out
+
+
+@pytest.mark.parametrize("knobs", [dict(fused_iteration=False),
+                                   dict(donate_pool=False),
+                                   dict(fused_iteration=False,
+                                        donate_pool=False)],
+                         ids=["legacy", "out-of-place", "both"])
+def test_from_config_legacy_and_out_of_place_equal_jax(models, knobs):
+    """``from_config`` builds legacy and out-of-place engines; the port's
+    cluster drains to the JAX package's default cluster streams."""
+    clusters = _from_config_pair(models)
+    jax_out = _drain(clusters[jserving], _reqs(jserving))
+    port = _from_config_pair(models, **knobs)[tserving]
+    assert all(e.fused_iteration == knobs.get("fused_iteration", True)
+               and e.runner.donate_pool == knobs.get("donate_pool", True)
+               for e in port.engines)
+    assert _drain(port, _reqs(tserving)) == jax_out
+
+
+def test_from_config_arms_the_shedder(models):
+    cluster = _from_config(models, slo_e2e_s=5.0, shed_queue_high=3.0)
+    assert cluster.shedder is not None
+    assert cluster.shedder.slo_e2e_s == 5.0
+    assert cluster.metrics_snapshot()["n_shed"] == 0.0
+    assert _from_config(models).shedder is None
+
+
 DEFERRED = {
     # name: (call, ROADMAP.md Queue 1 item named in the message)
-    "fused_iteration=False": (
-        lambda m: _from_config(m, fused_iteration=False), 1),
-    "donate_pool=False": (lambda m: _from_config(m, donate_pool=False), 1),
-    "model_parallel=2": (lambda m: _from_config(m, model_parallel=2), 4),
-    "slo_e2e_s": (lambda m: _from_config(m, slo_e2e_s=5.0), 2),
-    "prefill role": (lambda m: _from_config(
-        m, n_instances=2, roles=("prefill", "decode")), 2),
-    "scale_down": (lambda m: _from_config(m, n_instances=2).scale_down(1),
-                   2),
-    "attach_autoscaler": (
-        lambda m: _from_config(m).attach_autoscaler(object()), 2),
+    "model_parallel=2": (lambda m: _from_config(m, model_parallel=2), 1),
     "on_mesh_slices": (
         lambda m: tserving.ServingCluster.on_mesh_slices(
-            m[2], m[3], None, n_instances=2, model_parallel=2), 4),
+            m[2], m[3], None, n_instances=2, model_parallel=2), 1),
 }
 
 

@@ -336,3 +336,154 @@ def test_cuda_quickstart_runs_on_the_card(cuda, capsys):
     from repro_torch import quickstart
     assert quickstart.main([]) == 0
     assert "QUICKSTART OK" in capsys.readouterr().out
+
+
+# =============================================================================
+# the elastic slice's callers of the kernels
+# =============================================================================
+
+
+@pytest.mark.cuda
+def test_cuda_read_write_blocks_bf16_bit_round_trip(cuda):
+    """``write_blocks`` puts raw bfloat16 bits into the pool on the card
+    in place and ``read_blocks`` hands back the same bits as ``uint16``;
+    blocks not written keep theirs and the pool does not move."""
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = LanguageModel(cfg)
+    params = model.init_params(torch.Generator(cuda).manual_seed(0), cuda)
+    runner = serving.PagedModelRunner(model, params, num_blocks=32,
+                                      block_size=8, max_batch=2, device=cuda)
+    rng = np.random.default_rng(0)
+    shape = tuple(runner.pool.shape[:2]) + (6,) + tuple(runner.pool.shape[3:])
+    bits = rng.integers(0, 2 ** 16, shape, dtype=np.uint16)
+    bits[(bits & 0x7F80) == 0x7F80] = 0       # no NaN/inf patterns
+    ids = [31, 0, 4, 17, 9, 22]
+    addr = runner.pool_address()
+    before = runner.read_blocks([1, 2, 3])
+    runner.write_blocks(bits, ids)
+    assert runner.pool_address() == addr
+    got = runner.read_blocks(ids)
+    assert got.dtype == np.uint16
+    np.testing.assert_array_equal(got, bits)
+    np.testing.assert_array_equal(runner.read_blocks([4, 9]),
+                                  bits[:, :, [2, 4]])
+    np.testing.assert_array_equal(runner.read_blocks([1, 2, 3]), before)
+    assert runner.pool_address() == addr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TORCH_DTYPES))
+def test_cuda_paged_kernel_on_dead_row_batches(cuda, dtype):
+    """The legacy decode step's batch: live rows padded with dead rows of
+    context 1 and all-zero tables.  The kernel matches its plain version
+    on every row."""
+    tdt, tol = TORCH_DTYPES[dtype]
+    q, kp, vp, bt, cl = to_torch(paged_case(5, 8, 2, 4, 64, 8, 6, 64), tdt,
+                                 cuda)
+    bt[3:] = 0
+    cl[3:] = 1
+    assert_close(as_np(paged_attention(q, kp, vp, bt, cl)),
+                 as_np(paged_attention_ref(q, kp, vp, bt, cl)), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_batch_dead_rows_match_plain(cuda):
+    """``decode_batch`` on the CUDA paged kernel and on the plain version,
+    on the card, from the same pool: the live rows' logits agree (fp32),
+    the kernel launched once per layer, and the dead rows wrote only the
+    spare block."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="float32")
+    model = LanguageModel(cfg)
+    params = model.init_params(torch.Generator(cuda).manual_seed(0), cuda)
+    runners = {b: serving.PagedModelRunner(model, params, num_blocks=16,
+                                           block_size=8, max_batch=4,
+                                           backend=b, device=cuda)
+               for b in ("cuda", "ref")}
+    rng = np.random.default_rng(1)
+    p1 = torch.as_tensor(rng.integers(0, 500, 11), dtype=torch.int32)
+    p2 = torch.as_tensor(rng.integers(0, 500, 5), dtype=torch.int32)
+    for r in runners.values():
+        r.prefill(p1, [2, 6])
+        r.prefill(p2, [9])
+    tok = np.array([17, 23, 0, 0], np.int32)
+    pos = np.array([11, 5, 0, 0], np.int32)
+    tab = np.array([[2, 6, 0], [9, 0, 0], [0, 0, 0], [0, 0, 0]], np.int32)
+    live = np.array([True, True, False, False])
+    pool0 = runners["cuda"]._pool_buf.clone()
+    before = paged_attention.launches
+    got = runners["cuda"].decode_batch(tok, pos, tab, live)
+    assert paged_attention.launches - before == cfg.num_layers
+    want = runners["ref"].decode_batch(tok, pos, tab, live)
+    assert_close(as_np(got[:2]), as_np(want[:2]), 1e-4)
+    changed = (runners["cuda"]._pool_buf != pool0).flatten(4).any(-1)
+    slots = {tuple(x) for x in
+             torch.nonzero(changed.any(0).any(0)).cpu().tolist()}
+    assert slots <= {(6, 3), (9, 5), (16, 0)} and (16, 0) in slots
+    assert_close(as_np(runners["cuda"].pool), as_np(runners["ref"].pool),
+                 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_migrate_many_between_two_engines(cuda):
+    """Mid-decode requests move between two engines on the card in one
+    gathered ``write_blocks``: the target's blocks read back bit-equal to
+    the snapshots, neither pool moves, and the continued fp32 streams
+    equal an unmigrated drain's."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="float32")
+    model = LanguageModel(cfg)
+    params = model.init_params(torch.Generator(cuda).manual_seed(0), cuda)
+
+    def engine(iid):
+        r = serving.PagedModelRunner(model, params, num_blocks=64,
+                                     block_size=8, max_batch=4, device=cuda)
+        return serving.LLMEngine(r, instance_id=iid, max_batch=4,
+                                 enable_prefix_cache=True)
+
+    def reqs():
+        rng = np.random.default_rng(5)
+        system = rng.integers(0, 500, 16)
+        return [serving.Request(
+            agent_name="a", msg_id=f"m{i}", prompt_len=25 + i,
+            prompt_tokens=np.concatenate(
+                [system, rng.integers(0, 500, 9 + i)]).astype(np.int32),
+            max_new_tokens=12) for i in range(4)]
+
+    def drain(*engines):
+        done = []
+        for _ in range(4000):
+            for e in engines:
+                done.extend(e.step())
+            if not any(e.sched.has_work for e in engines):
+                return {r.msg_id: [int(t) for t in r.output_tokens]
+                        for r in done}
+        raise AssertionError("drain did not converge")
+
+    serving.reset_request_ids()
+    base_engine = engine(0)
+    for q in reqs():
+        base_engine.submit(q)
+    base = drain(base_engine)
+    serving.reset_request_ids()
+    e0, e1 = engine(0), engine(1)
+    for q in reqs():
+        e0.submit(q)
+    done = []
+    for _ in range(3):
+        done.extend(e0.step())
+    a0, a1 = e0.runner.pool_address(), e1.runner.pool_address()
+    d1 = e1.runner.n_dispatches
+    snaps, skipped = serving.migrate_many(e0, e1, list(e0.sched.running))
+    assert snaps and not skipped
+    assert e1.runner.n_dispatches - d1 == 1
+    for s in snaps:
+        table = e1.bm.block_table(s.req.req_id)
+        n = e1.bm.blocks_needed(s.n_resident_tokens)
+        c = s.n_cached_blocks
+        np.testing.assert_array_equal(e1.runner.read_blocks(table[c:n]),
+                                      s.kv[:, :, c:n])
+    assert (e0.runner.pool_address(), e1.runner.pool_address()) == (a0, a1)
+    out = {r.msg_id: [int(t) for t in r.output_tokens] for r in done}
+    out.update(drain(e0, e1))
+    assert out == base

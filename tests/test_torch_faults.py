@@ -4,12 +4,14 @@
   0-9;
 * the pure cases of ``tests/test_faults_recovery.py`` run on the port's
   ``FaultInjector``, ``RecoveryManager`` (on stub clusters) and
-  ``LoadShedder`` (priced by the JAX package's ``CostModel``, which the
-  port has not ported yet);
+  ``LoadShedder`` (priced by the port's ``CostModel``);
 * crash storms on a real 3-instance port cluster (reduced qwen3-1.7b,
   fp32, the JAX weights carried across) lose no request, duplicate none,
   and every recovered stream equals the JAX package's fault-free drain;
-  the crashed instances' KV pools are freed.
+  the crashed instances' KV pools are freed;
+* a port cluster with ``slo_e2e_s`` set tight under a burst sheds the
+  same requests as the JAX package's cluster and completes every other
+  one with the same stream.
 """
 import dataclasses
 import gc
@@ -24,11 +26,11 @@ from repro.configs import get_config as jax_get_config
 from repro.core import Orchestrator as JaxOrchestrator
 from repro.core.orchestrator import HardwareProfile as JaxHardwareProfile
 from repro.models import build_model as jax_build_model
-from repro.sim.cost_model import CostModel
 from repro_torch import serving as tserving
 from repro_torch.configs import get_config
 from repro_torch.core import HardwareProfile, Orchestrator
 from repro_torch.models import LanguageModel, params_from_jax
+from repro_torch.sim.cost_model import CostModel
 from repro_torch.serving import (
     DispatchEffects,
     FaultInjector,
@@ -355,3 +357,50 @@ def test_port_cluster_recovers_to_jax_fault_free_streams(
     # the cluster keeps no reference to a dead engine: its pool is freed
     gc.collect()
     assert {i for i, ref in pools.items() if ref() is None} == crashed
+
+
+def _ticks():
+    """A clock that advances a second a read: deadlines and the valve's
+    patience then do not depend on how fast either framework steps."""
+    ticks = iter(range(10**6))
+    return lambda: float(next(ticks))
+
+
+def _shed_run(models, mod):
+    mod.reset_request_ids()
+    config = mod.ServingConfig(num_blocks=64, block_size=8, max_batch=2,
+                               n_instances=1, policy="fcfs",
+                               slo_e2e_s=40.0, shed_queue_high=3.0,
+                               shed_patience=2)
+    if mod is jserving:
+        cluster = jserving.ServingCluster.from_config(
+            models[0], models[1], JaxOrchestrator(hardware=JaxHardwareProfile(
+                decode_tok_per_s=20.0, kv_capacity_tokens=64 * 8)),
+            config, clock=_ticks())
+    else:
+        cluster = tserving.ServingCluster.from_config(
+            models[2], models[3], Orchestrator(hardware=HardwareProfile(
+                decode_tok_per_s=20.0, kv_capacity_tokens=64 * 8)),
+            config, clock=_ticks(), device="cpu")
+    reqs = _chaos_reqs(mod, n=12, max_new=6)
+    for q in reqs:
+        q.arrival_time = cluster.clock()
+        cluster.submit(q)
+    done = _drain(cluster)
+    assert sorted(r.msg_id for r in done) == sorted(r.msg_id for r in reqs)
+    shed = sorted(r.msg_id for r in done
+                  if r.state is mod.RequestState.SHED)
+    streams = {r.msg_id: [int(t) for t in r.output_tokens] for r in done
+               if r.state is not mod.RequestState.SHED}
+    return shed, streams, cluster.metrics_snapshot()
+
+
+def test_port_cluster_sheds_like_jax_under_a_burst(models):
+    jshed, jstreams, jsnap = _shed_run(models, jserving)
+    tshed, tstreams, tsnap = _shed_run(models, tserving)
+    assert tshed, "the burst must open the valve and shed"
+    assert all(len(v) == 6 for v in tstreams.values()), \
+        "every request not shed completes"
+    assert tshed == jshed
+    assert tstreams == jstreams
+    assert tsnap["n_shed"] == jsnap["n_shed"] == len(tshed)

@@ -140,6 +140,33 @@ def test_prefill_logits_match_jax(models):
     assert tcache["pos"] == int(jcache["pos"])
 
 
+def test_decode_step_matches_jax(models):
+    """``tests/test_models_smoke.py``'s decode cases on qwen3: one token
+    over the prefill's cache (grown to hold it) gives the JAX package's
+    logits and cache, and agrees with the longer prefill."""
+    jm, jp, tm, tp = models
+    tol = 1e-4 if tm.cfg.dtype == "float32" else 2e-2
+    tokens = np.random.default_rng(4).integers(0, 500, (2, 10)).astype(np.int32)
+    _, jcache = jm.prefill(jp, jnp.asarray(tokens[:, :9]))
+    _, tcache = tm.prefill(tp, torch.from_numpy(tokens[:, :9]))
+    jcache = dict(jcache, kv=jnp.pad(jcache["kv"], [(0, 0)] * 3
+                                     + [(0, 4), (0, 0), (0, 0)]))
+    tcache = dict(tcache, kv=torch.nn.functional.pad(
+        tcache["kv"], (0, 0, 0, 0, 0, 4)))
+    kv_before = tcache["kv"].clone()
+    jlog, jnew = jm.decode_step(jp, jcache, jnp.asarray(tokens[:, 9:10]))
+    tlog, tnew = tm.decode_step(tp, tcache, torch.from_numpy(tokens[:, 9:10]))
+    assert tlog.shape == jlog.shape == (2, tm.cfg.vocab_size)
+    assert torch.isfinite(tlog.float()).all()
+    close(tlog, jlog, tol)
+    close(tnew["kv"], jnew["kv"], tol)
+    assert tnew["pos"] == int(jnew["pos"]) == 10
+    assert torch.equal(tcache["kv"], kv_before), "the input cache is kept"
+    full, _ = tm.prefill(tp, torch.from_numpy(tokens))
+    close(tlog, full.float().numpy(),
+          1e-4 if tm.cfg.dtype == "float32" else 5e-2)
+
+
 def test_unported_families_raise():
     cfg = get_config("qwen3-1.7b").reduced()
     for bad in (dataclasses.replace(cfg, moe=MoEConfig(4, 2, 128)),
@@ -164,6 +191,12 @@ def test_port_imports_no_jax():
             "repro_torch.core.distributions, repro_torch.core.memory_model, "
             "repro_torch.core.orchestrator, repro_torch.core.priority, "
             "repro_torch.core.scheduler, repro_torch.core.workflow\n"
+            "import repro_torch.serving.migration, "
+            "repro_torch.serving.handoff, repro_torch.serving.autoscaler, "
+            "repro_torch.sim, repro_torch.sim.cost_model, "
+            "repro_torch.sim.simulator, repro_torch.sim.workload, "
+            "repro_torch.workloads, repro_torch.workloads.traces, "
+            "repro_torch.obs.export, repro_torch.cluster_sim\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'\n")
