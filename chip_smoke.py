@@ -11,8 +11,10 @@ fails prints its error and the script exits non-zero.
 1. build     compile the kernels from ``src/repro_torch/kernels/csrc`` with
              nvcc for sm_90a; print the card's name and power limit.
 2. kernels   each kernel against its plain version on the card: the sweeps
-             of tests/test_kernels.py, a head dim of 112 and the full-width
-             qwen3-1.7b shapes, in float32 (tolerance 2e-5) and bfloat16
+             of tests/test_kernels.py, a head dim of 112, the full-width
+             qwen3-1.7b shapes and the served families' head shapes (KV 16
+             G 1 hd 128, KV 32 G 1 hd 80, KV 8 G 3 hd 128, each also timed
+             at full width), in float32 (tolerance 2e-5) and bfloat16
              (2e-2); contexts at, one past and short of the decode kernel's
              split boundaries; prefill chunks whose length is no multiple of
              the row tile and whose offsets are no multiple of the key tile;
@@ -68,6 +70,32 @@ fails prints its error and the script exits non-zero.
              the legacy, migrated and disaggregated streams against the
              fused, unmigrated and colocated ones under the margin rule.
 
+7. moe       this slice's path: qwen2-moe-a2.7b at its published widths and
+             full depth (24 layers, 60 experts top-4 plus the shared FFN,
+             bf16, 14,315,587,584 seeded parameters) through one
+             ``LLMEngine`` (4096 blocks, 16 sequences, prefix cache,
+             512-token chunks) on the drain phase's 16 requests, fused and
+             then legacy; each path's launch counters are zeroed just
+             before and read just after.  A replay of each counts the
+             expert assignments of real rows that capacity drops, a
+             profiled fused replay gives the device's busy time and the
+             MoE FFN's share of it.  Then, at 4 layers in float32, the CUDA
+             kernels against the plain versions under the margin rule,
+             extended for MoE: a diverging stream is excused also where
+             the plain run routed some token of that sequence with a
+             top-k gap below 1e-5.
+8. families  every other arch of the registry at its published widths:
+             llama3.2-3b (G = 3) and stablelm-3b (hd 80) at full depth and
+             chameleon-34b at 4 layers drain 8 requests fused and legacy in
+             bf16, with a float32 identity check at 2 layers; gemma3-27b
+             (6 layers: 5 local, 1 global; a 1536-token prompt), rwkv6-3b
+             (2 layers), jamba-v0.1-52b (one 8-layer block) and
+             seamless-m4t-large-v2 (full depth) run prefill and decode_step
+             at the model level, the decode logits held to a prefill one
+             token longer in bf16 (2e-2) and in float32 at 2 layers (1e-4).
+             kimi-k2-1t-a32b is not run on the card (one MoE layer alone
+             holds 16.9 B parameters); the CPU tests cover it.
+
 Then the per-kernel summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -99,6 +127,7 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}     # as tests/test_kernels.py
 MARGIN = 1e-4                                 # argmax ties below this
+ROUTE_GAP = 1e-5                              # MoE routing ties below this
 
 # tests/test_kernels.py, copied as literals
 SHAPES = [
@@ -132,6 +161,16 @@ EDGE_PAGED = (8, 8, 2, 128, 16, 40, 512)
 EDGE_CONTEXTS = (1, 17, 255, 256, 257, 511, 512, 513)
 EDGE_RAGGED = ([(100, 37), (65, 0), (1, 63), (130, 64)], 8, 2, 128, 16, 13,
                64)
+
+# the head shapes the served families give the kernels at full width:
+# (KV, G, hd) of qwen2-moe-a2.7b (16 over 16), stablelm-3b (32 over 32,
+# hd 80) and llama3.2-3b (24 over 8); each is checked on a sweep-sized
+# case (contexts across the decode splits, chunks across the row and key
+# tiles) in both dtypes and timed in bf16 at the full-width sizes above
+HEAD_SHAPES = {"qwen2-moe": (16, 1, 128), "stablelm": (32, 1, 80),
+               "llama3.2": (8, 3, 128)}
+HEAD_PAGED = (3, 16, 40, 128)               # b, bs, nb, n_pool
+HEAD_RAGGED = ([(130, 37), (65, 0), (1, 300)], 16, 24, 96)
 
 DEVICE = "cuda"
 
@@ -375,6 +414,9 @@ def phase_kernels(state, seed: int):
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ragged_attention import ragged_segment_attention
     rng = np.random.default_rng(seed)
+    # the served head shapes draw from a generator of their own, so the
+    # shapes timed above keep the inputs of earlier runs
+    served_rng = np.random.default_rng(seed + 2)
     errs = {"paged_attention": {}, "ragged_segment_attention": {}}
     checks = 0
     for name, tdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -487,10 +529,65 @@ def phase_kernels(state, seed: int):
                 "paged_attention": time_paged(full),
                 "ragged_segment_attention": time_ragged(rfull),
             }
+        checks += served_head_shapes(state, served_rng, name, tdt, tol)
     torch.cuda.synchronize()
     state["errs"] = errs
     return {"checks": checks, "max_abs_err": errs,
-            "timing_bf16_full_width": state["timing"]}
+            "max_abs_err_by_head_shape": state["shape_errs"],
+            "timing_bf16_full_width": {"qwen3-1.7b": state["timing"],
+                                       **state["shape_timing"]}}
+
+
+def served_head_shapes(state, rng, name: str, tdt, tol: float) -> int:
+    """Both kernels against their plain versions at each of HEAD_SHAPES,
+    with poison past every bound; in bf16 each is also timed at the
+    full-width sizes.  Returns the number of checks."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    errs = state.setdefault("shape_errs", {})
+    timing = state.setdefault("shape_timing", {})
+    nan = float("nan")
+    for label, (kv, g, hd) in HEAD_SHAPES.items():
+        b, bs, nb, n_pool = HEAD_PAGED
+        args = on_card(paged_case(rng, b, kv, g, hd, bs, nb, n_pool), tdt)
+        out = paged_attention(*args)
+        e_paged = compare(out, ref.paged_attention_ref(*args), tol,
+                          f"paged {name} {label}")
+        require(torch.equal(paged_attention(*poison_paged(args, 1e4, nan)),
+                            out), f"paged {name} {label}: poison past the "
+                            "context changed the output")
+        segs, bs, nb, n_pool = HEAD_RAGGED
+        args = on_card(ragged_case(rng, segs, kv, g, hd, bs, nb, n_pool), tdt)
+        out = ragged_segment_attention(*args)
+        e_ragged = compare(out, ref.ragged_segment_attention_ref(*args), tol,
+                           f"ragged {name} {label}")
+        require(torch.equal(ragged_segment_attention(
+            *poison_ragged(args, 1e4, nan)), out),
+            f"ragged {name} {label}: poison past the page bound changed the "
+            "output")
+        row = errs.setdefault(label, {"KV": kv, "G": g, "hd": hd})
+        row[f"paged_{name}"], row[f"ragged_{name}"] = e_paged, e_ragged
+        if name == "bfloat16":
+            b, _, _, _, bs, nb, n_pool = FULL_PAGED
+            full = on_card(paged_case(rng, b, kv, g, hd, bs, nb, n_pool,
+                                      contexts=FULL_CONTEXTS), tdt)
+            row["paged_bfloat16_full"] = compare(
+                paged_attention(*full), ref.paged_attention_ref(*full), tol,
+                f"paged {name} {label} full width")
+            segs, _, _, _, bs, nb, n_pool = FULL_RAGGED
+            rfull = on_card(ragged_case(rng, segs, kv, g, hd, bs, nb, n_pool),
+                            tdt)
+            row["ragged_bfloat16_full"] = compare(
+                ragged_segment_attention(*rfull),
+                ref.ragged_segment_attention_ref(*rfull), tol,
+                f"ragged {name} {label} full width")
+            timing[label] = {"paged_attention": time_paged(full),
+                             "ragged_segment_attention": time_ragged(rfull)}
+            del full, rfull
+    return 4 * len(HEAD_SHAPES) + (2 * len(HEAD_SHAPES)
+                                   if name == "bfloat16" else 0)
 
 
 def time_paged(args):
@@ -627,13 +724,15 @@ def engine_for(runner, fused=True):
                              prefill_chunk_tokens=512, fused_iteration=fused)
 
 
-def device_busy(profile_events, wall_s: float):
+def device_busy(profile_events, wall_s: float, ranges=()):
     """Busy and idle shares of the card over ``wall_s``, and each kernel
-    family's share of the busy time, from a torch.profiler trace."""
+    family's share of the busy time, from a torch.profiler trace.  The
+    device-side spans of the ``record_function`` ranges named in
+    ``ranges`` are not kernels and are left out."""
     from torch.autograd import DeviceType
     spans, by_name, count = [], {}, {}
     for e in profile_events:
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.name in ranges:
             continue
         s, t = e.time_range.start, e.time_range.end
         spans.append((s, t))
@@ -643,7 +742,8 @@ def device_busy(profile_events, wall_s: float):
         key = ("paged_attention" if "paged_attention" in name
                else "ragged_segment_attention"
                if "ragged_attention" in name
-               else "gemm" if "gemm" in name.lower() or "cutlass" in name
+               else "gemm" if ("gemm" in name.lower() or "cutlass" in name
+                               or name.startswith("nvjet"))
                else "other")
         by_name[key] = by_name.get(key, 0.0) + (t - s)
         count[key] = count.get(key, 0) + 1
@@ -814,27 +914,40 @@ def streams_and_margins(done, log, max_new: int):
     return streams, {k: v[:max_new] for k, v in margins.items()}
 
 
-def margin_rule(got, want, margins, what: str) -> dict:
+def margin_rule(got, want, margins, what: str, routing=None) -> dict:
     """``got`` against ``want``: at the first token where a stream differs,
-    ``want``'s run must have had a top-2 margin at or below MARGIN."""
-    compared = identical = near_ties = 0
+    ``want``'s run must have had a top-2 margin at or below MARGIN.  For
+    an MoE model ``routing`` (msg -> per emitted token, whether the plain
+    run had routed some token of that sequence, in some layer, with a
+    top-k gap below ROUTE_GAP by then) excuses a divergence too."""
+    compared = identical = near_ties = routed = 0
     min_margin = float("inf")
     for msg in sorted(want):
         g, w, m = got[msg], want[msg], margins[msg]
         require(len(g) == len(w) <= len(m), f"{what} {msg}: stream lengths")
         for i in range(len(w)):
             if g[i] != w[i]:
-                require(m[i] <= MARGIN, f"{what} {msg} token {i}: {g[i]} vs "
-                        f"{w[i]} at margin {m[i]}")
-                near_ties += 1
+                if m[i] <= MARGIN:
+                    near_ties += 1
+                else:
+                    require(routing is not None and routing[msg][i],
+                            f"{what} {msg} token {i}: {g[i]} vs {w[i]} at "
+                            f"margin {m[i]}, no routing near-tie")
+                    routed += 1
                 break
             compared += 1
             min_margin = min(min_margin, m[i])
         else:
             identical += 1
-    return {"streams": len(want), "identical_streams": identical,
-            "tokens_compared": compared, "near_tie_divergences": near_ties,
-            "min_margin_compared": min_margin}
+    out = {"streams": len(want), "identical_streams": identical,
+           "tokens_compared": compared, "near_tie_divergences": near_ties,
+           "min_margin_compared": min_margin}
+    if routing is not None:
+        out["routing_near_tie_divergences"] = routed
+        out["streams_with_routing_near_ties"] = sum(
+            any(v) for v in routing.values())
+        out["unexplained_divergences"] = 0
+    return out
 
 
 def phase_identity(state, seed: int):
@@ -1744,7 +1857,518 @@ def phase_elastic(state, seed: int):
     return out
 
 
+# =============================================================================
+# phase 7: the MoE family at full width (qwen2-moe-a2.7b)
+# =============================================================================
+
+# the parameters the reference's init_moe / init_ffn layout gives the full
+# config: 24 layers of 570,552,320, two 311,164,928-entry embedding
+# tables, the final norm
+MOE_PARAMS = 14_315_587_584
+
+
+def moe_config():
+    """qwen2-moe-a2.7b at its published widths and depth."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-moe-a2.7b")
+    m = cfg.moe
+    require(cfg.num_layers == 24 and cfg.d_model == 2048
+            and (cfg.num_heads, cfg.num_kv_heads) == (16, 16)
+            and cfg.resolved_head_dim == 128 and cfg.vocab_size == 151_936
+            and not cfg.tie_embeddings and cfg.dtype == "bfloat16"
+            and (m.num_experts, m.top_k, m.d_expert, m.d_shared) == (
+                60, 4, 1408, 5632) and m.capacity_factor == 1.25,
+            "not the full-width qwen2-moe-a2.7b")
+    return cfg
+
+
+def count_params(tree) -> int:
+    return sum(count_params(v) if isinstance(v, dict) else v.numel()
+               for v in tree.values())
+
+
+class MoeHook:
+    """Wraps the MoE FFN (``models.model.moe_ffn``, which the runner's
+    steps and the model's reach through ``ffn_block``) and, given a
+    ``runner``, the runner's steps.  Each call adds the expert
+    assignments of real rows that capacity dropped (``dropped``, a device
+    count) and all of theirs (``assigned``).  With ``ties``, each fused
+    step also records, per real segment, whether some row of it had a
+    top-k routing gap below ROUTE_GAP in some layer (one dict a step, in
+    step order, as ``record_margins`` logs).  Real rows: on the fused
+    path those with a write slot in the pool; on the legacy path every
+    prefill row and the live decode rows; outside a runner every row."""
+
+    def __init__(self, runner=None, ties: bool = False):
+        import torch
+        from repro_torch.models import model as model_mod
+        self.runner, self.rows, self.gap = runner, None, None
+        self.dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        self.assigned = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        self.ties = [] if ties else None
+        self.saved = [(model_mod, "moe_ffn", model_mod.moe_ffn)]
+        model_mod.moe_ffn = self.moe(model_mod.moe_ffn)
+        if runner is not None:
+            self.saved += [(runner, n, getattr(runner, n))
+                           for n in ("run_iteration", "decode_batch")]
+            runner.run_iteration = self.fused(runner.run_iteration)
+            runner.decode_batch = self.legacy_decode(runner.decode_batch)
+
+    def moe(self, orig):
+        import torch
+        from repro_torch.models import moe as moe_mod
+
+        def hooked(p, x, cfg):
+            xf = x.reshape(-1, x.shape[-1])
+            n, k = xf.shape[0], cfg.moe.top_k
+            probs, _, idx = moe_mod.route(p, xf, cfg)
+            order, _, keep, _ = moe_mod.dispatch(idx, n, cfg)
+            real = (self.rows if self.rows is not None
+                    else torch.ones(n, dtype=torch.bool, device=x.device))
+            self.dropped += (~keep & real[order // k]).sum()
+            self.assigned += real.sum() * k
+            if self.ties is not None:
+                top = probs.topk(k + 1, dim=-1).values
+                gap = top[:, k - 1] - top[:, k]
+                self.gap = gap if self.gap is None else torch.minimum(
+                    self.gap, gap)
+            return orig(p, x, cfg)
+        return hooked
+
+    def fused(self, orig):
+        import torch
+
+        def run(batch):
+            n_slots = self.runner.num_blocks * self.runner.block_size
+            slots = np.asarray(batch.write_slots)
+            self.rows = torch.as_tensor(slots < n_slots,
+                                        device=self.runner.device)
+            self.gap = None
+            try:
+                return orig(batch)
+            finally:
+                if self.ties is not None:
+                    self.ties.append(self.segment_ties(batch))
+                self.rows = None
+        return run
+
+    def segment_ties(self, batch) -> dict:
+        """msg -> whether some real row of the segment had a near-tie."""
+        near = (self.gap < ROUTE_GAP).cpu().numpy() & (self.rows.cpu().numpy())
+        sp, lmax = np.shape(batch.tokens_p)
+        prefill = [s for s in batch.segments if s.kind != "decode"]
+        out = {}
+        for j, seg in enumerate(prefill):
+            out[seg.req.msg_id] = bool(near[j * lmax:(j + 1) * lmax].any())
+        decode = [s for s in batch.segments if s.kind == "decode"]
+        for i, seg in enumerate(decode):
+            out[seg.req.msg_id] = bool(near[sp * lmax + i])
+        return out
+
+    def legacy_decode(self, orig):
+        import torch
+
+        def run(tokens, positions, block_tables, live):
+            self.rows = torch.as_tensor(np.asarray(live, bool),
+                                        device=self.runner.device)
+            try:
+                return orig(tokens, positions, block_tables, live)
+            finally:
+                self.rows = None
+        return run
+
+    def routing_flags(self, margin_log, max_new: int) -> dict:
+        """msg -> per emitted token, whether a near-tie had been seen in
+        that sequence by then (``margin_log`` from ``record_margins``)."""
+        seen, flags = {}, {}
+        for (segs, _, _), ties in zip(margin_log, self.ties):
+            for msg, emits in segs:
+                seen[msg] = seen.get(msg, False) or ties.get(msg, False)
+                if emits:
+                    flags.setdefault(msg, []).append(seen[msg])
+        return {k: v[:max_new] for k, v in flags.items()}
+
+    def close(self) -> int:
+        for obj, name, f in self.saved:
+            setattr(obj, name, f)
+        return int(self.dropped)
+
+
+def moe_profile(runner, seed: int, vocab: int, wall: float):
+    """One profiled replay of the fused drain: the device's busy time, the
+    MoE FFN's share of it (the kernels launched inside ``moe_ffn``:
+    router, sort and scatter, expert products, combine, shared FFN)
+    against the two attention kernels and the rest, and kernel launches
+    an iteration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch import serving
+    from repro_torch.models import model as model_mod
+    orig = model_mod.moe_ffn
+
+    def annotated(p, x, cfg):
+        with record_function("moe_ffn"):
+            return orig(p, x, cfg)
+
+    model_mod.moe_ffn = annotated
+    try:
+        eng = engine_for(runner.clone())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            replay = drain(eng, make_requests(serving, seed, vocab))
+    finally:
+        model_mod.moe_ffn = orig
+    events = prof.events()
+    busy = device_busy(events, replay[3], ranges=("moe_ffn",))
+    require(busy is not None, "the profiler saw no device activity")
+    moe_us = sum(getattr(e, "device_time_total", None)
+                 or getattr(e, "cuda_time_total", 0) for e in events
+                 if e.name == "moe_ffn" and e.device_type == DeviceType.CPU)
+    shares = busy["busy_share_by_kernel"]
+    attn = (shares.get("paged_attention", 0.0)
+            + shares.get("ragged_segment_attention", 0.0))
+    moe = moe_us * 1e-6 / busy["device_busy_s"]
+    busy["busy_share"] = {"moe_ffn": moe, "attention_kernels": attn,
+                          "rest": 1.0 - moe - attn}
+    busy["kernel_launches_per_iteration"] = sum(
+        e.count for e in prof.key_averages()
+        if e.key == "cudaLaunchKernel") / replay[1]
+    busy["idle_share_of_unprofiled_wall"] = max(
+        0.0, 1.0 - busy["device_busy_s"] / wall)
+    return busy
+
+
+def phase_moe(state, seed: int):
+    import torch
+    from repro_torch import serving
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    release_pools()
+    cfg = moe_config()
+    torch.cuda.reset_peak_memory_stats()
+    model, params = served(cfg, seed)
+    n_params = count_params(params)
+    require(n_params == MOE_PARAMS, f"{n_params} parameters built")
+    vocab = cfg.vocab_size
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    # warm-up: one request (cuBLAS handles, the allocator)
+    drain(engine_for(runner_for(model, params)),
+          (make_requests(serving, seed + 1, vocab)[0][:1], []))
+    release_pools()
+    part("init_and_warm_up")
+
+    def launches():
+        return {"paged_attention": paged_attention.launches,
+                "ragged_segment_attention": ragged_segment_attention.launches}
+
+    out = {"model": "qwen2-moe-a2.7b", "layers": cfg.num_layers,
+           "dtype": cfg.dtype, "parameters_built": n_params,
+           "param_count_of_config": cfg.param_count(), "card": state["smi"]}
+    for path, fused in (("fused", True), ("legacy", False)):
+        runner = runner_for(model, params)
+        paged_attention.launches = 0
+        ragged_segment_attention.launches = 0
+        eng = engine_for(runner, fused=fused)
+        done, iters, addrs, wall, _ = drain(eng, make_requests(serving, seed,
+                                                               vocab))
+        counts = launches()
+        require(len(done) == 16, f"moe {path}: {len(done)} of 16 finished")
+        for r in done:
+            require(len(r.output_tokens) == 32 and all(
+                0 <= int(t) < vocab for t in r.output_tokens),
+                f"moe {path} {r.msg_id}: bad output")
+        require(len(addrs) == 1, f"moe {path}: the pool moved")
+        require(counts["paged_attention"] > 0,
+                f"moe {path}: the paged kernel never launched")
+        require((counts["ragged_segment_attention"] > 0) == fused,
+                f"moe {path}: ragged launches {counts}")
+        require(max(counts.values()) <= cfg.num_layers * iters,
+                f"moe {path}: more than one launch per layer and iteration")
+        if fused:
+            require(runner.n_dispatches == iters,
+                    f"{runner.n_dispatches} dispatches for {iters} "
+                    "iterations")
+            state["moe_launches"] = counts
+        generated = sum(r.output_len for r in done)
+        out[path] = {
+            "requests": len(done), "iterations": iters,
+            "dispatches_per_iteration": runner.n_dispatches / iters,
+            "wall_s": wall, "generated_tokens": generated,
+            "tokens_per_s": generated / wall,
+            "ttft_median_s": statistics.median(
+                r.first_token_time - r.arrival_time for r in done),
+            "tpot_median_s": tpot_median(done),
+            "prefill_tokens_saved": eng.stats.prefill_tokens_saved,
+            "kernel_launches": counts,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        part(path)
+        # the same traffic again, counting the assignments capacity drops
+        hook = MoeHook(runner)
+        try:
+            replay = drain(engine_for(runner, fused=fused),
+                           make_requests(serving, seed, vocab))[0]
+        finally:
+            out[path]["assignments_dropped_real_rows"] = hook.close()
+        out[path]["assignments_real_rows"] = int(hook.assigned)
+        require(streams_of(replay) == streams_of(done),
+                f"moe {path}: the counting replay changed the streams")
+        part(f"{path}_counting_replay")
+        if fused:
+            out["pool_bytes"] = runner.metrics_snapshot()["pool_bytes"]
+            out["profiled"] = moe_profile(runner, seed, vocab, wall)
+            part("profiled_replay")
+        del eng, done, replay, runner
+        release_pools()
+    del model, params
+    release_pools()
+
+    # float32 at 4 layers of full width: the CUDA kernels against the
+    # plain versions, under the margin rule and its routing extension
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    model32, params32 = served(cfg32, seed)
+    runs = {}
+    for backend in ("cuda", "ref"):
+        runner = runner_for(model32, params32, backend)
+        log, undo = record_margins(runner)
+        hook = MoeHook(runner, ties=backend == "ref")
+        try:
+            done = drain(engine_for(runner),
+                         make_requests(serving, seed, cfg32.vocab_size))[0]
+        finally:
+            hook.close()
+            undo()
+        streams, margins = streams_and_margins(done, log, 32)
+        runs[backend] = (streams, margins,
+                         hook.routing_flags(log, 32) if hook.ties is not None
+                         else None)
+        del runner
+        release_pools()
+    out["float32_check"] = {"layers": cfg32.num_layers, **margin_rule(
+        runs["cuda"][0], runs["ref"][0], runs["ref"][1], "moe cuda",
+        routing=runs["ref"][2])}
+    part("float32_check")
+    out["seconds_by_part"] = parts
+    return out
+
+
+# =============================================================================
+# phase 8: every other family of the registry on the card
+# =============================================================================
+
+FAM_BLOCKS = 1024
+# arch, layers on the card (None: full depth), how it runs
+FAMILIES = (
+    ("llama3.2-3b", None, "served"),
+    ("stablelm-3b", None, "served"),
+    ("chameleon-34b", 4, "served"),
+    ("gemma3-27b", 6, "model"),
+    ("rwkv6-3b", 2, "model"),
+    ("jamba-v0.1-52b", 8, "model"),
+    ("seamless-m4t-large-v2", None, "model"),
+)
+# model-level prompts: (batch, prompt tokens, encoder frames); gemma3's
+# passes its 1024-token window; jamba's 7 + 1 tokens keep every MoE call at
+# 8 rows or fewer, where capacity (at least 8) can drop nothing, so decode
+# and the one-longer prefill route alike; its 300-token prefill crosses two
+# 128-token Mamba chunks
+FAM_PROMPTS = {"gemma3-27b": (1, 1536, 0), "rwkv6-3b": (2, 100, 0),
+               "jamba-v0.1-52b": (1, 7, 0),
+               "seamless-m4t-large-v2": (2, 64, 128)}
+JAMBA_LONG = 300
+
+
+def cut(cfg, layers):
+    """``cfg`` at ``layers`` layers (the layer pattern cut with it)."""
+    if layers is None:
+        return cfg
+    pat = cfg.layer_pattern[:layers] if cfg.layer_pattern else None
+    return dataclasses.replace(cfg, num_layers=layers, layer_pattern=pat)
+
+
+def two_layers(cfg):
+    """The float32 check's depth: 2 layers; a hybrid keeps one layer of
+    each kind, as ``reduced()`` does."""
+    if cfg.layer_pattern and len(set(cfg.layer_pattern)) > 1:
+        return dataclasses.replace(cfg, num_layers=2,
+                                   layer_pattern=("mamba", "attn"))
+    return cut(cfg, 2)
+
+
+def family_served(cfg, seed: int) -> dict:
+    """bf16 drains of 8 requests, fused and legacy, then the float32
+    identity of the CUDA kernels against the plain versions at 2 layers."""
+    from repro_torch import serving
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    model, params = served(cfg, seed)
+    out = {"parameters_built": count_params(params)}
+    for path, fused in (("fused", True), ("legacy", False)):
+        runner = runner_for(model, params, num_blocks=FAM_BLOCKS)
+        before = (paged_attention.launches, ragged_segment_attention.launches)
+        first, second = make_requests(serving, seed, cfg.vocab_size)
+        done, iters, _, wall, _ = drain(engine_for(runner, fused=fused),
+                                        (first, second[:4]))
+        counts = (paged_attention.launches - before[0],
+                  ragged_segment_attention.launches - before[1])
+        require(len(done) == 8 and all(
+            len(r.output_tokens) == 32
+            and all(0 <= int(t) < cfg.vocab_size for t in r.output_tokens)
+            for r in done), f"{cfg.name} {path}: bad drain")
+        require(counts[0] > 0 and (counts[1] > 0) == fused,
+                f"{cfg.name} {path}: launches {counts}")
+        out[path] = {"iterations": iters, "wall_s": wall,
+                     "dispatches_per_iteration": runner.n_dispatches / iters,
+                     "tpot_median_s": tpot_median(done),
+                     "kernel_launches": {"paged_attention": counts[0],
+                                         "ragged_segment_attention":
+                                             counts[1]}}
+        del runner
+        release_pools()
+    del model, params
+    release_pools()
+    cfg32 = dataclasses.replace(two_layers(cfg), dtype="float32")
+    model32, params32 = served(cfg32, seed)
+    runs = {}
+    for backend in ("cuda", "ref"):
+        runner = runner_for(model32, params32, backend, num_blocks=FAM_BLOCKS)
+        log, undo = record_margins(runner)
+        try:
+            first, second = make_requests(serving, seed, cfg.vocab_size)
+            done = drain(engine_for(runner), (first, second[:4]))[0]
+        finally:
+            undo()
+        runs[backend] = streams_and_margins(done, log, 32)
+        del runner
+        release_pools()
+    out["float32_check"] = {"layers": 2, **margin_rule(
+        runs["cuda"][0], runs["ref"][0], runs["ref"][1], cfg.name)}
+    return out
+
+
+def decode_vs_prefill(model, params, seed: int, batch: int, n: int,
+                      n_frames: int, tol: float) -> dict:
+    """Prefill n tokens, decode one more, and hold the decode logits to a
+    prefill of all n + 1 (allclose at ``tol``, its absolute part scaled by
+    the largest logit); every logit finite.  The longer prefill must drop
+    no MoE assignment for capacity."""
+    import torch
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, n + 1))
+                           .astype(np.int32), device=DEVICE)
+    extra = []
+    if cfg.is_encdec:
+        extra = [torch.as_tensor(rng.standard_normal(
+            (batch, n_frames, cfg.d_model)).astype(np.float32),
+            device=DEVICE)]
+    logits, cache = model.prefill(params, toks[:, :n], *extra)
+    if "kv" in cache:
+        cache = dict(cache, kv=torch.nn.functional.pad(
+            cache["kv"], (0, 0, 0, 0, 0, 1)))
+    dec, new = model.decode_step(params, cache, toks[:, n:])
+    hook = MoeHook()
+    try:
+        full, _ = model.prefill(params, toks, *extra)
+    finally:
+        hook.close()
+    require(int(hook.dropped) == 0, f"{cfg.name}: the longer prefill "
+            f"dropped {int(hook.dropped)} assignments")
+    for t in (logits, dec, full):
+        require(bool(torch.isfinite(t.float()).all()),
+                f"{cfg.name}: non-finite logits")
+    require(new["pos"] == n + 1, f"{cfg.name}: cache position")
+    d, f = dec.float(), full.float()
+    err = float((d - f).abs().max())
+    scale = max(1.0, float(f.abs().max()))
+    require(bool(((d - f).abs() <= tol * scale + tol * f.abs()).all()),
+            f"{cfg.name}: decode vs prefill max abs err {err} (scale "
+            f"{scale}) beyond {tol}")
+    return {"batch": batch, "prompt": n, "frames": n_frames,
+            "max_abs_err": err, "logit_scale": scale, "tol": tol}
+
+
+def family_model(cfg, seed: int) -> dict:
+    """bf16 at the phase's depth, then float32 at 2 layers: prefill,
+    decode_step, and decode against the one-longer prefill."""
+    import torch
+    from repro_torch.models import build_model
+    batch, n, frames = FAM_PROMPTS[cfg.name]
+    out = {}
+    for dtype, c, tol in (("bfloat16", cfg, 2e-2),
+                          ("float32", two_layers(cfg), 1e-4)):
+        c = dataclasses.replace(c, dtype=dtype)
+        model = build_model(c)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        params = model.init_params(gen, device=DEVICE)
+        t0 = time.perf_counter()
+        row = {"layers": c.num_layers,
+               **decode_vs_prefill(model, params, seed, batch, n, frames,
+                                   tol)}
+        if dtype == "bfloat16":
+            row["parameters_built"] = count_params(params)
+            if cfg.name.startswith("jamba"):
+                toks = torch.as_tensor(np.random.default_rng(seed).integers(
+                    0, c.vocab_size, (1, JAMBA_LONG)).astype(np.int32),
+                    device=DEVICE)
+                logits, _ = model.prefill(params, toks)
+                require(bool(torch.isfinite(logits.float()).all()),
+                        "jamba: non-finite logits on the long prompt")
+                row["long_prefill_tokens"] = JAMBA_LONG
+        torch.cuda.synchronize()
+        row["s"] = time.perf_counter() - t0
+        out[dtype] = row
+        del model, params
+        release_pools()
+    return out
+
+
+def phase_families(state, seed: int):
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    release_pools()
+    paged_attention.launches = 0
+    ragged_segment_attention.launches = 0
+    out, cuts = {}, {}
+    for arch, layers, kind in FAMILIES:
+        full = get_config(arch)
+        cfg = cut(full, layers)
+        if layers is not None:
+            cuts[arch] = f"{full.num_layers} -> {layers} layers"
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        row = (family_served if kind == "served" else family_model)(cfg, seed)
+        row.update(kind=kind, layers=cfg.num_layers,
+                   s=time.perf_counter() - t0,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[arch] = row
+    launches = {"paged_attention": paged_attention.launches,
+                "ragged_segment_attention": ragged_segment_attention.launches}
+    state["families_launches"] = launches
+    require(min(launches.values()) > 0, f"a kernel never launched: {launches}")
+    covered = {a for a, _, _ in FAMILIES} | {"qwen3-1.7b", "qwen2-moe-a2.7b"}
+    off_card = sorted(set(ARCH_IDS) - covered)
+    require(off_card == ["kimi-k2-1t-a32b"], f"not run: {off_card}")
+    cuts["kimi-k2-1t-a32b"] = ("not run on the card: one MoE layer holds "
+                               "16.9 B parameters; covered on the CPU by "
+                               "tests/test_torch_families.py")
+    return {"families": out, "cuts": cuts, "kernel_launches": launches,
+            "card": state["smi"]}
+
+
 def kernels_line(state):
+    """One row per kernel.  The main path is this slice's, the MoE drain
+    (phase 7): ``launches`` counts its fused drain, and the times, bound
+    and error are at its shape (KV 16, G 1, hd 128; 16 decode sequences
+    at contexts 256-4096, 4 chunks of 512), bf16.  ``by_shape`` holds the
+    earlier slices' qwen3-1.7b shape and the other served head shapes."""
     rows = []
     for name, src, replaces, bodies in (
             ("paged_attention", PAGED_SRC,
@@ -1756,15 +2380,22 @@ def kernels_line(state):
              {"bfloat16": "ragged_attention_tc_kernel (wgmma tensor cores)",
               "float32": "ragged_attention_kernel (fp32 CUDA cores, "
                          "attend_rows of csrc/attention_tile.cuh)"})):
-        t = state["timing"][name]
+        t = state["shape_timing"]["qwen2-moe"][name]
+        short = name.split("_")[0]
+        by_shape = {"qwen3-1.7b": state["timing"][name],
+                    **{k: v[name] for k, v in state["shape_timing"].items()}}
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": state["elastic_launches"][name],
-            "launches_by_path": {"drain": state["launches"][name],
-                                 "workflow": state["workflow_launches"][name],
-                                 "elastic": state["elastic_launches"][name]},
-            "max_abs_err": state["errs"][name]["bfloat16_full"],
+            "launches": state["moe_launches"][name],
+            "launches_by_path": {
+                "drain": state["launches"][name],
+                "workflow": state["workflow_launches"][name],
+                "elastic": state["elastic_launches"][name],
+                "moe": state["moe_launches"][name],
+                "families": state["families_launches"][name]},
+            "max_abs_err":
+                state["shape_errs"]["qwen2-moe"][f"{short}_bfloat16_full"],
             "ms": t["kernel_ms"], "plain_ms": t["ref_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "bound_share": t["bound_share"],
@@ -1775,9 +2406,15 @@ def kernels_line(state):
             "library_eager_ms": t["library_eager_ms"],
             "dtype": "bfloat16", "body_by_dtype": bodies,
             "shape": t["shape"],
+            "by_shape": {k: {f: v[f] for f in (
+                "kernel_ms", "ref_ms", "library_ms", "bound_ms", "bound_by",
+                "bound_share", "shape")} for k, v in by_shape.items()},
             "max_abs_err_by_dtype": {
                 k: v for k, v in state["errs"][name].items()
                 if not k.endswith("_full")},
+            "max_abs_err_by_head_shape": {
+                k: {d: v[f"{short}_{d}"] for d in ("float32", "bfloat16")}
+                for k, v in state["shape_errs"].items()},
             "card": state["smi"]})
     return {"kernels": rows}
 
@@ -1812,7 +2449,9 @@ def main(argv=None) -> int:
               ("drain", lambda: phase_drain(state, args.seed)),
               ("identity", lambda: phase_identity(state, args.seed)),
               ("workflow", lambda: phase_workflow(state, args.seed)),
-              ("elastic", lambda: phase_elastic(state, args.seed)))
+              ("elastic", lambda: phase_elastic(state, args.seed)),
+              ("moe", lambda: phase_moe(state, args.seed)),
+              ("families", lambda: phase_families(state, args.seed)))
     for name, run in phases:
         t0 = time.perf_counter()
         try:

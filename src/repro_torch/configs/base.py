@@ -1,8 +1,9 @@
 """Config system: model architecture configs.
 
-Each served architecture has one ``src/repro_torch/configs/<id>.py`` module
-exporting ``CONFIG``; ``get_config`` imports it by id.  CPU tests use the
-``reduced()`` variants; the full configs run on the card.
+Every architecture of the JAX package has one
+``src/repro_torch/configs/<id>.py`` module exporting ``CONFIG``;
+``get_config`` imports it by id.  CPU tests use the ``reduced()``
+variants; the full configs run on the card.
 """
 from __future__ import annotations
 
@@ -203,9 +204,16 @@ class ModelConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-# the configs the port serves so far; the other families join with the
-# slices that port their layers
 ARCH_IDS = (
+    "qwen2-moe-a2.7b",
+    "chameleon-34b",
+    "gemma3-27b",
+    "seamless-m4t-large-v2",
+    "rwkv6-3b",
+    "stablelm-3b",
+    "llama3.2-3b",
+    "jamba-v0.1-52b",
+    "kimi-k2-1t-a32b",
     "qwen3-1.7b",
 )
 

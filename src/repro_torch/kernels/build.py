@@ -134,7 +134,7 @@ def count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 
-HEAD_DIMS = (32, 64, 112, 128)
+HEAD_DIMS = (32, 64, 80, 112, 128)
 _DTYPE_CODE = {"torch.float32": 0, "torch.bfloat16": 1}
 
 

@@ -187,7 +187,7 @@ paged_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k_po
 
   const int warp = tid >> 5, lane = tid & 31;
   const int grp = lane / kGroup, sub = lane % kGroup;
-  const bool active = sub < kLanes;              // hd 112: 14 of 16 lanes
+  const bool active = sub < kLanes;              // hd 80 / 112: 10 / 14 of 16 lanes
   float m[GMAX], l[GMAX], acc[GMAX][8];
 #pragma unroll
   for (int gi = 0; gi < GMAX; ++gi) {
@@ -368,6 +368,7 @@ cudaError_t dispatch_hd(int hd, int g, const void* q, const void* k_pool,
   switch (hd) {
     case 32: return dispatch_g<T, 32>(g, q, k_pool, v_pool, block_tables, context_lens, out, part_acc, part_ml, counters, b, n_kv, nb, bs, n_splits, split_tokens, stream);
     case 64: return dispatch_g<T, 64>(g, q, k_pool, v_pool, block_tables, context_lens, out, part_acc, part_ml, counters, b, n_kv, nb, bs, n_splits, split_tokens, stream);
+    case 80: return dispatch_g<T, 80>(g, q, k_pool, v_pool, block_tables, context_lens, out, part_acc, part_ml, counters, b, n_kv, nb, bs, n_splits, split_tokens, stream);
     case 112: return dispatch_g<T, 112>(g, q, k_pool, v_pool, block_tables, context_lens, out, part_acc, part_ml, counters, b, n_kv, nb, bs, n_splits, split_tokens, stream);
     case 128: return dispatch_g<T, 128>(g, q, k_pool, v_pool, block_tables, context_lens, out, part_acc, part_ml, counters, b, n_kv, nb, bs, n_splits, split_tokens, stream);
     default: return cudaErrorInvalidValue;

@@ -421,6 +421,7 @@ extern "C" int ragged_attention_launch(const void* q, const void* k_pool,
   switch (hd) {
     case 32: return (int)launch<32>(dtype, q, k_pool, v_pool, block_tables, positions, out, n_seg, seq_l, n_kv, g, nb, bs, st);
     case 64: return (int)launch<64>(dtype, q, k_pool, v_pool, block_tables, positions, out, n_seg, seq_l, n_kv, g, nb, bs, st);
+    case 80: return (int)launch<80>(dtype, q, k_pool, v_pool, block_tables, positions, out, n_seg, seq_l, n_kv, g, nb, bs, st);
     case 112: return (int)launch<112>(dtype, q, k_pool, v_pool, block_tables, positions, out, n_seg, seq_l, n_kv, g, nb, bs, st);
     case 128: return (int)launch<128>(dtype, q, k_pool, v_pool, block_tables, positions, out, n_seg, seq_l, n_kv, g, nb, bs, st);
     default: return (int)cudaErrorInvalidValue;

@@ -1,28 +1,33 @@
-"""The served language model: the uniform-attention dense decoder.
+"""Language models of every architecture family of the JAX package.
 
-A :class:`LanguageModel` is a stateless object built from a
-:class:`ModelConfig`; parameters are an explicit nested dict of tensors
-laid out as the JAX package's pytree (layer-stacked leading dim,
-``(d_in, d_out)`` weights), so the two compute the same function on the
-same weights (``models/convert.py`` carries them across).
+A :class:`LanguageModel` (decoder-only: dense, MoE, VLM, RWKV, the Jamba
+hybrid) or :class:`EncDecModel` (seamless) is a stateless object built
+from a :class:`ModelConfig`; parameters are an explicit nested dict of
+tensors laid out as the JAX package's pytree (layer-stacked leading dim,
+``(d_in, d_out)`` weights; Jamba stacks 8-layer super-blocks, each
+holding its attention layer and its ``mamba_dense`` / ``mamba_moe``
+groups), so the two compute the same function on the same weights
+(``models/convert.py`` carries them across).
 
 Public entry points:
-  init_params(generator, device)   -> params (seeded torch initialiser)
-  prefill(params, tokens)          -> (logits, cache)   dense causal forward
-  decode_step(params, cache, tok)  -> (logits, cache)   one token, dense cache
+  init_params(generator, device)          -> params (seeded initialiser)
+  prefill(params, tokens[, frames])       -> (logits, cache)
+  decode_step(params, cache, tokens)      -> (logits, cache)  one token
+  init_cache(batch, max_len[, enc_len])   -> zeroed cache dict
 
-MoE, SSM, hybrid and encoder-decoder families raise
-``NotImplementedError``: they are ported after the serving path.
+Training (``loss``) raises ``NotImplementedError``: it is ported with the
+optimizer and the data pipeline.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     embed_tokens,
     init_embedding,
@@ -32,93 +37,476 @@ from repro_torch.models.layers import (
     rms_norm,
     swiglu,
 )
+from repro_torch.models.moe import init_moe, moe_ffn
 
-_LATER = ("is not ported yet: the port serves uniform-attention dense "
-          "decoders so far (see ROADMAP.md, model families)")
+_TRAINING = ("training is not ported yet: the optimizer, data pipeline "
+             "and loss come with ROADMAP.md Queue 1 item 2")
+
+
+def _zeros(lead, d, device) -> torch.Tensor:
+    return torch.zeros(*lead, d, dtype=torch.float32, device=device)
+
+
+def _ffn_or_moe(p: dict, generator, cfg, dtype, device, lead, ffn_kind):
+    if ffn_kind == "moe":
+        p["moe"] = init_moe(generator, cfg, dtype, device, lead)
+    else:
+        p["ffn"] = init_ffn(generator, cfg.d_model, cfg.d_ff, dtype, device,
+                            lead)
+    return p
+
+
+def _init_attn_layer(generator, cfg, dtype, device, lead, ffn_kind) -> dict:
+    p = {"ln1": _zeros(lead, cfg.d_model, device),
+         "ln2": _zeros(lead, cfg.d_model, device),
+         "attn": attn.init_attention(generator, cfg, dtype, device, lead)}
+    return _ffn_or_moe(p, generator, cfg, dtype, device, lead, ffn_kind)
+
+
+def _init_mamba_layer(generator, cfg, dtype, device, lead, ffn_kind) -> dict:
+    p = {"ln1": _zeros(lead, cfg.d_model, device),
+         "ln2": _zeros(lead, cfg.d_model, device),
+         "mamba": ssm.init_mamba(generator, cfg, dtype, device, lead)}
+    return _ffn_or_moe(p, generator, cfg, dtype, device, lead, ffn_kind)
+
+
+def ffn_block(lp: dict, h2: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's FFN: routed experts where it has them, else SwiGLU.
+    The MoE FFN sees every row of ``h2``, padding included: its capacity,
+    and so which assignments drop, depends on them, as in the reference."""
+    if "moe" in lp:
+        return moe_ffn(lp["moe"], h2, cfg)[0]
+    return swiglu(h2, **lp["ffn"])
+
+
+# =============================================================================
+# LanguageModel
+# =============================================================================
 
 
 class LanguageModel:
-    """Decoder-only LM with uniform attention layers and dense FFNs."""
+    """Decoder-only LM (dense / MoE / VLM / RWKV / Jamba-hybrid)."""
 
     def __init__(self, cfg: ModelConfig):
-        kinds = set(cfg.layer_kinds)
-        if kinds != {"attn"}:
-            raise NotImplementedError(f"layer kinds {sorted(kinds)} {_LATER}")
-        if cfg.moe is not None or cfg.is_encdec:
-            raise NotImplementedError(f"{cfg.family} model {_LATER}")
-        if cfg.sliding_window is not None or cfg.global_attn_every:
-            raise NotImplementedError(f"windowed attention {_LATER}")
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
-        self.uniform_kind = "attn"
+        kinds = cfg.layer_kinds
+        self.uniform_kind = kinds[0] if len(set(kinds)) == 1 else None
+        if self.uniform_kind is None:
+            # Jamba-style periodic pattern; the smallest repeating unit
+            self.block_period = next(
+                p for p in range(1, cfg.num_layers + 1)
+                if cfg.num_layers % p == 0
+                and kinds == kinds[:p] * (cfg.num_layers // p))
+            self.n_blocks = cfg.num_layers // self.block_period
+            self.block_kinds = kinds[:self.block_period]
+        moe_layers = set(cfg.moe_layer_indices())
+        self.ffn_kinds = tuple("moe" if i in moe_layers else "dense"
+                               for i in range(cfg.num_layers))
+        if self.uniform_kind is None:
+            # the ffn pattern repeats with the block (jamba: moe period 2 | 8)
+            assert self.ffn_kinds == (self.ffn_kinds[:self.block_period]
+                                      * self.n_blocks)
 
+    # -- flags ---------------------------------------------------------------
+    def _is_global_flags(self) -> Optional[List[bool]]:
+        """Per layer: True for a global layer, False for a windowed one;
+        None when the arch has no window."""
+        cfg = self.cfg
+        if cfg.global_attn_every:
+            return [(i % cfg.global_attn_every) == (cfg.global_attn_every - 1)
+                    for i in range(cfg.num_layers)]
+        if cfg.sliding_window is not None:
+            return [False] * cfg.num_layers
+        return None
+
+    def _layer_flags(self) -> list:
+        return self._is_global_flags() or [None] * self.cfg.num_layers
+
+    def _block_layers(self, blk: dict):
+        """(kind, ffn kind, layer params) of each layer of one Jamba block,
+        in block order."""
+        i_md = i_mm = 0
+        for i, kind in enumerate(self.block_kinds):
+            fk = self.ffn_kinds[i]
+            if kind == "attn":
+                yield kind, fk, blk["attn"]
+            elif fk == "moe":
+                yield kind, fk, layer_slice(blk["mamba_moe"], i_mm)
+                i_mm += 1
+            else:
+                yield kind, fk, layer_slice(blk["mamba_dense"], i_md)
+                i_md += 1
+
+    # =========================================================================
+    # init
+    # =========================================================================
     def init_params(self, generator: torch.Generator,
                     device: Optional[torch.device] = None) -> dict:
         """Random weights drawn from ``generator`` (which must live on
         ``device``), laid out as the JAX package's ``init_params``:
-        normal(0, 1/d_in) matrices, 0.02-scaled embedding, zero fp32
-        norm scales."""
+        normal(0, 1/d_in) matrices, 0.02-scaled embedding, zero fp32 norm
+        scales, fp32 routers and SSM decay leaves."""
         cfg, dtype = self.cfg, self.dtype
         device = resolve_device(device)
-        n, d = cfg.num_layers, cfg.d_model
+        n = cfg.num_layers
         params = init_embedding(generator, cfg, dtype, device)
-        params["final_norm"] = torch.zeros(d, dtype=torch.float32,
-                                           device=device)
-        params["layers"] = {
-            "ln1": torch.zeros(n, d, dtype=torch.float32, device=device),
-            "ln2": torch.zeros(n, d, dtype=torch.float32, device=device),
-            "attn": attn.init_attention(generator, cfg, dtype, device, (n,)),
-            "ffn": init_ffn(generator, d, cfg.d_ff, dtype, device, (n,)),
-        }
+        params["final_norm"] = _zeros((), cfg.d_model, device)
+        if self.uniform_kind == "attn":
+            params["layers"] = _init_attn_layer(generator, cfg, dtype, device,
+                                                (n,), self.ffn_kinds[0])
+        elif self.uniform_kind == "rwkv":
+            params["layers"] = {
+                "ln1": _zeros((n,), cfg.d_model, device),
+                "ln2": _zeros((n,), cfg.d_model, device),
+                "tmix": ssm.init_rwkv_time_mix(generator, cfg, dtype, device,
+                                               (n,)),
+                "cmix": ssm.init_rwkv_channel_mix(generator, cfg, dtype,
+                                                  device, (n,)),
+            }
+        else:  # jamba blocks: one attention layer and two mamba groups
+            nb = self.n_blocks
+            blk = {}
+            groups = {"mamba_dense": 0, "mamba_moe": 0}
+            for i, kind in enumerate(self.block_kinds):
+                fk = self.ffn_kinds[i]
+                if kind == "attn":
+                    blk["attn"] = _init_attn_layer(generator, cfg, dtype,
+                                                   device, (nb,), fk)
+                else:
+                    groups["mamba_moe" if fk == "moe" else "mamba_dense"] += 1
+            for name, count in groups.items():
+                if count:
+                    blk[name] = _init_mamba_layer(
+                        generator, cfg, dtype, device, (nb, count),
+                        "moe" if name == "mamba_moe" else "dense")
+            params["layers"] = blk
         return params
 
+    # =========================================================================
+    # caches
+    # =========================================================================
+    def init_cache(self, batch: int, max_len: int,
+                   device: Optional[torch.device] = None) -> dict:
+        cfg = self.cfg
+        device = resolve_device(device)
+        hd = cfg.resolved_head_dim
+        cache: dict = {"pos": 0}
+        n_attn = len(cfg.attn_layer_indices)
+        if n_attn:
+            cache["kv"] = torch.zeros(
+                n_attn, 2, batch, max_len, cfg.num_kv_heads, hd,
+                dtype=self.dtype, device=device)
+        kinds = cfg.layer_kinds
+        n_rwkv = sum(1 for k in kinds if k == "rwkv")
+        if n_rwkv:
+            h = cfg.d_model // cfg.rwkv_head_dim
+            cache["rwkv_state"] = torch.zeros(
+                n_rwkv, batch, h, cfg.rwkv_head_dim, cfg.rwkv_head_dim,
+                dtype=torch.float32, device=device)
+            cache["rwkv_shift1"] = torch.zeros(n_rwkv, batch, cfg.d_model,
+                                               dtype=self.dtype, device=device)
+            cache["rwkv_shift2"] = torch.zeros(n_rwkv, batch, cfg.d_model,
+                                               dtype=self.dtype, device=device)
+        n_mamba = sum(1 for k in kinds if k == "mamba")
+        if n_mamba:
+            di = cfg.ssm_expand * cfg.d_model
+            cache["mamba_h"] = torch.zeros(n_mamba, batch, di,
+                                           cfg.ssm_state_dim,
+                                           dtype=torch.float32, device=device)
+            cache["mamba_conv"] = torch.zeros(
+                n_mamba, batch, cfg.ssm_conv_dim - 1, di, dtype=self.dtype,
+                device=device)
+        return cache
+
+    # =========================================================================
+    # layer bodies (shared by prefill / decode)
+    # =========================================================================
+    def _attn_layer_fwd(self, lp, x, is_global):
+        cfg = self.cfg
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        o, kv = attn.causal_attention(lp["attn"], h, cfg, is_global=is_global,
+                                      return_kv=True)
+        x = x + o
+        return x + ffn_block(lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                              cfg), torch.stack(kv)
+
+    def _attn_layer_decode(self, lp, x, cache_kv, pos, is_global):
+        cfg = self.cfg
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        o, new_kv = attn.decode_attention(lp["attn"], h, cache_kv, pos, cfg,
+                                          is_global=is_global)
+        x = x + o
+        return x + ffn_block(lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                              cfg), new_kv
+
+    def _rwkv_layer_fwd(self, lp, x, state, s1, s2, decode: bool):
+        cfg = self.cfg
+        fn = ssm.rwkv_time_mix_step if decode else ssm.rwkv_time_mix
+        o, new_state, new_s1 = fn(lp["tmix"],
+                                  rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                  state, s1, cfg)
+        x = x + o
+        o2, new_s2 = ssm.rwkv_channel_mix(
+            lp["cmix"], rms_norm(x, lp["ln2"], cfg.norm_eps), s2)
+        return x + o2, new_state, new_s1, new_s2
+
+    def _mamba_layer_fwd(self, lp, x, h_state, conv_state, decode: bool):
+        cfg = self.cfg
+        fn = ssm.mamba_step if decode else ssm.mamba_forward
+        o, new_h, new_conv = fn(lp["mamba"],
+                                rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                h_state, conv_state, cfg)
+        x = x + o
+        return x + ffn_block(lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                              cfg), new_h, new_conv
+
+    # =========================================================================
+    # full-sequence forward (prefill)
+    # =========================================================================
     @torch.no_grad()
     def _forward_seq(self, params: dict, tokens: torch.Tensor):
-        """tokens (B, S) -> final-normed hidden (B, S, d) and the roped
-        KV of every layer (L, 2, B, S, KV, hd)."""
+        """tokens (B, S) -> final-normed hidden (B, S, d) and the cache of
+        the whole sequence."""
         cfg = self.cfg
         x = embed_tokens(params, tokens).to(self.dtype)
-        kvs = []
-        for i in range(cfg.num_layers):
-            lp = layer_slice(params["layers"], i)
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            o, (k, v) = attn.causal_attention(lp["attn"], h, cfg,
-                                              return_kv=True)
-            x = x + o
-            h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + swiglu(h2, **lp["ffn"])
-            kvs.append(torch.stack([k, v]))
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), torch.stack(kvs)
+        b, s = tokens.shape
+        dev = x.device
+        cache = {"pos": s}
+        if self.uniform_kind == "attn":
+            kvs = []
+            for i, flag in enumerate(self._layer_flags()):
+                x, kv = self._attn_layer_fwd(layer_slice(params["layers"], i),
+                                             x, flag)
+                kvs.append(kv)
+            cache["kv"] = torch.stack(kvs)
+        elif self.uniform_kind == "rwkv":
+            h = cfg.d_model // cfg.rwkv_head_dim
+            st0 = torch.zeros(b, h, cfg.rwkv_head_dim, cfg.rwkv_head_dim,
+                              dtype=torch.float32, device=dev)
+            sh0 = torch.zeros(b, cfg.d_model, dtype=self.dtype, device=dev)
+            sts, sh1s, sh2s = [], [], []
+            for i in range(cfg.num_layers):
+                x, st, sh1, sh2 = self._rwkv_layer_fwd(
+                    layer_slice(params["layers"], i), x, st0, sh0, sh0, False)
+                sts.append(st)
+                sh1s.append(sh1.to(self.dtype))
+                sh2s.append(sh2.to(self.dtype))
+            cache.update(rwkv_state=torch.stack(sts),
+                         rwkv_shift1=torch.stack(sh1s),
+                         rwkv_shift2=torch.stack(sh2s))
+        else:  # jamba blocks
+            di = cfg.ssm_expand * cfg.d_model
+            h0 = torch.zeros(b, di, cfg.ssm_state_dim, dtype=torch.float32,
+                             device=dev)
+            c0 = torch.zeros(b, cfg.ssm_conv_dim - 1, di, dtype=self.dtype,
+                             device=dev)
+            kvs, hs, convs = [], [], []
+            for j in range(self.n_blocks):
+                blk = layer_slice(params["layers"], j)
+                for kind, _, lp in self._block_layers(blk):
+                    if kind == "attn":
+                        x, kv = self._attn_layer_fwd(lp, x, None)
+                        kvs.append(kv)
+                    else:
+                        x, nh, nc = self._mamba_layer_fwd(lp, x, h0, c0,
+                                                          False)
+                        hs.append(nh)
+                        convs.append(nc)
+            cache.update(kv=torch.stack(kvs), mamba_h=torch.stack(hs),
+                         mamba_conv=torch.stack(convs))
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+    # =========================================================================
+    # public API
+    # =========================================================================
+    def loss(self, params, batch):
+        raise NotImplementedError(_TRAINING)
 
     def prefill(self, params: dict, tokens: torch.Tensor):
-        """tokens (B, S) -> (last-token logits (B, V), cache) with
-        ``cache = {"kv": (L, 2, B, S, KV, hd), "pos": S}``."""
-        x, kv = self._forward_seq(params, tokens)
-        logits = lm_logits(params, x[:, -1], self.cfg)
-        return logits, {"kv": kv, "pos": tokens.shape[1]}
+        """tokens (B, S) -> (last-token logits (B, V), cache); the cache
+        holds ``pos = S`` and, by family, ``kv`` (L_attn, 2, B, S, KV,
+        hd), the RWKV states and shifts, the Mamba states and conv
+        windows."""
+        x, cache = self._forward_seq(params, tokens)
+        return lm_logits(params, x[:, -1], self.cfg), cache
 
     @torch.no_grad()
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
         """tokens (B, 1) -> (logits (B, V), updated cache).  ``cache`` is
         what :meth:`prefill` returns, its ``kv`` padded along the sequence
-        axis to hold the new token at slot ``cache["pos"]``."""
+        axis to hold the new token at slot ``cache["pos"]``; it is not
+        modified."""
         cfg = self.cfg
         pos = int(cache["pos"])
         x = embed_tokens(params, tokens).to(self.dtype)
-        new_kv = []
-        for i in range(cfg.num_layers):
-            lp = layer_slice(params["layers"], i)
+        new = dict(cache, pos=pos + 1)
+        if self.uniform_kind == "attn":
+            kvs = []
+            for i, flag in enumerate(self._layer_flags()):
+                x, kv = self._attn_layer_decode(
+                    layer_slice(params["layers"], i), x, cache["kv"][i], pos,
+                    flag)
+                kvs.append(kv)
+            new["kv"] = torch.stack(kvs)
+        elif self.uniform_kind == "rwkv":
+            sts, s1s, s2s = [], [], []
+            for i in range(cfg.num_layers):
+                x, st, s1, s2 = self._rwkv_layer_fwd(
+                    layer_slice(params["layers"], i), x,
+                    cache["rwkv_state"][i], cache["rwkv_shift1"][i],
+                    cache["rwkv_shift2"][i], True)
+                sts.append(st)
+                s1s.append(s1.to(self.dtype))
+                s2s.append(s2.to(self.dtype))
+            new.update(rwkv_state=torch.stack(sts),
+                       rwkv_shift1=torch.stack(s1s),
+                       rwkv_shift2=torch.stack(s2s))
+        else:  # jamba
+            kvs, hs, convs = [], [], []
+            i_a = i_m = 0
+            for j in range(self.n_blocks):
+                blk = layer_slice(params["layers"], j)
+                for kind, _, lp in self._block_layers(blk):
+                    if kind == "attn":
+                        x, kv = self._attn_layer_decode(
+                            lp, x, cache["kv"][i_a], pos, None)
+                        kvs.append(kv)
+                        i_a += 1
+                    else:
+                        x, nh, nc = self._mamba_layer_fwd(
+                            lp, x, cache["mamba_h"][i_m],
+                            cache["mamba_conv"][i_m], True)
+                        hs.append(nh)
+                        convs.append(nc)
+                        i_m += 1
+            new.update(kv=torch.stack(kvs), mamba_h=torch.stack(hs),
+                       mamba_conv=torch.stack(convs))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return lm_logits(params, x[:, 0], cfg), new
+
+
+# =============================================================================
+# Encoder-decoder (seamless-m4t): the encoder consumes frame embeddings
+# =============================================================================
+
+
+class EncDecModel:
+    """Enc-dec transformer; the encoder consumes precomputed frame
+    embeddings (B, S_enc, d) in place of the speech frontend."""
+
+    def __init__(self, cfg: ModelConfig):
+        assert cfg.is_encdec
+        self.cfg = cfg
+        self.dtype = torch_dtype(cfg.dtype)
+
+    def init_params(self, generator: torch.Generator,
+                    device: Optional[torch.device] = None) -> dict:
+        cfg, dtype = self.cfg, self.dtype
+        device = resolve_device(device)
+        d, ne, nd = cfg.d_model, (cfg.num_encoder_layers,), (cfg.num_layers,)
+        params = init_embedding(generator, cfg, dtype, device)
+        params["final_norm"] = _zeros((), d, device)
+        params["enc_final_norm"] = _zeros((), d, device)
+        params["encoder"] = {
+            "ln1": _zeros(ne, d, device), "ln2": _zeros(ne, d, device),
+            "attn": attn.init_attention(generator, cfg, dtype, device, ne),
+            "ffn": init_ffn(generator, d, cfg.d_ff, dtype, device, ne)}
+        params["decoder"] = {
+            "ln1": _zeros(nd, d, device), "ln_x": _zeros(nd, d, device),
+            "ln2": _zeros(nd, d, device),
+            "attn": attn.init_attention(generator, cfg, dtype, device, nd),
+            "xattn": attn.init_attention(generator, cfg, dtype, device, nd,
+                                         cross=True),
+            "ffn": init_ffn(generator, d, cfg.d_ff, dtype, device, nd)}
+        return params
+
+    @torch.no_grad()
+    def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, S_enc, d) -> the encoder's final-normed output."""
+        cfg = self.cfg
+        x = frames.to(self.dtype)
+        for i in range(cfg.num_encoder_layers):
+            lp = layer_slice(params["encoder"], i)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            o, kv = attn.decode_attention(lp["attn"], h, cache["kv"][i], pos,
-                                          cfg)
-            x = x + o
+            x = x + attn.causal_attention(lp["attn"], h, cfg, causal=False)
             h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
             x = x + swiglu(h2, **lp["ffn"])
-            new_kv.append(kv)
+        return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+    def _memory_kv(self, params: dict, memory: torch.Tensor) -> torch.Tensor:
+        """(L, 2, B, S_enc, KV, hd): every decoder layer's cross K/V."""
+        return torch.stack([
+            torch.stack(attn.project_memory_kv(
+                layer_slice(params["decoder"], i)["xattn"], memory, self.cfg))
+            for i in range(self.cfg.num_layers)])
+
+    def _decoder_layer(self, lp, x, mem_kv, cache_kv=None, pos=None):
+        cfg = self.cfg
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if cache_kv is not None:
+            o, new_kv = attn.decode_attention(lp["attn"], h, cache_kv, pos,
+                                              cfg)
+        else:
+            o, kv = attn.causal_attention(lp["attn"], h, cfg, return_kv=True)
+            new_kv = torch.stack(kv)
+        x = x + o
+        hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+        x = x + attn.cross_attention(lp["xattn"], hx, (mem_kv[0], mem_kv[1]),
+                                     cfg)
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + swiglu(h2, **lp["ffn"]), new_kv
+
+    def loss(self, params, batch):
+        raise NotImplementedError(_TRAINING)
+
+    def init_cache(self, batch: int, max_len: int, enc_len: int,
+                   device: Optional[torch.device] = None) -> dict:
+        cfg = self.cfg
+        device = resolve_device(device)
+        shape = (cfg.num_layers, 2, batch)
+        tail = (cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {
+            "pos": 0,
+            "kv": torch.zeros(*shape, max_len, *tail, dtype=self.dtype,
+                              device=device),
+            "memory_kv": torch.zeros(*shape, enc_len, *tail,
+                                     dtype=self.dtype, device=device),
+        }
+
+    @torch.no_grad()
+    def prefill(self, params: dict, tokens: torch.Tensor,
+                frames: torch.Tensor):
+        """tokens (B, S), frames (B, S_enc, d) -> (last-token logits, cache
+        {"pos", "kv", "memory_kv"})."""
+        cfg = self.cfg
+        mkvs = self._memory_kv(params, self.encode(params, frames))
+        x = embed_tokens(params, tokens).to(self.dtype)
+        kvs = []
+        for i in range(cfg.num_layers):
+            x, kv = self._decoder_layer(layer_slice(params["decoder"], i), x,
+                                        mkvs[i])
+            kvs.append(kv)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = lm_logits(params, x[:, 0], cfg)
-        return logits, dict(cache, kv=torch.stack(new_kv), pos=pos + 1)
+        cache = {"pos": tokens.shape[1], "kv": torch.stack(kvs),
+                 "memory_kv": mkvs}
+        return lm_logits(params, x[:, -1], cfg), cache
+
+    @torch.no_grad()
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
+        cfg = self.cfg
+        pos = int(cache["pos"])
+        x = embed_tokens(params, tokens).to(self.dtype)
+        kvs = []
+        for i in range(cfg.num_layers):
+            x, kv = self._decoder_layer(layer_slice(params["decoder"], i), x,
+                                        cache["memory_kv"][i],
+                                        cache["kv"][i], pos)
+            kvs.append(kv)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return (lm_logits(params, x[:, 0], cfg),
+                dict(cache, kv=torch.stack(kvs), pos=pos + 1))
 
 
-def build_model(cfg: ModelConfig) -> LanguageModel:
-    return LanguageModel(cfg)
+def build_model(cfg: ModelConfig):
+    return EncDecModel(cfg) if cfg.is_encdec else LanguageModel(cfg)

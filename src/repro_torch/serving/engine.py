@@ -29,9 +29,8 @@ from repro_torch.models.layers import (
     layer_slice,
     lm_logits,
     rms_norm,
-    swiglu,
 )
-from repro_torch.models.model import LanguageModel
+from repro_torch.models.model import LanguageModel, ffn_block
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serving.batch_scheduler import (
@@ -61,11 +60,11 @@ def _layer_qkv(lp, x, sin, cos, cfg):
 
 
 def _layer_finish(x, o, lp, cfg):
-    """Transformer-layer tail: attention output projection and the FFN,
-    both residual.  ``o`` is (T, H*hd)."""
+    """Transformer-layer tail: attention output projection and the FFN or
+    MoE block (``models.model.ffn_block``), both residual.  ``o`` is
+    (..., H*hd)."""
     x = x + o @ lp["attn"]["wo"]
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(h2, **lp["ffn"])
+    return x + ffn_block(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
 
 
 # IterationBatch arrays uploaded to the device, in order

@@ -52,7 +52,7 @@ def models():
     cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
                               dtype="float32")
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
-                             cfg, device="cpu")
+                             device="cpu")
     return jmodel, jparams, LanguageModel(cfg), params
 
 

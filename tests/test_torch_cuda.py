@@ -221,6 +221,70 @@ def test_cuda_engine_matches_ref_drain(cuda):
     assert outs["cuda"] == outs["ref"]
 
 
+# the head shapes the served families give the kernels at full width:
+# (KV, G, hd) of qwen2-moe-a2.7b, stablelm-3b and llama3.2-3b
+HEAD_SHAPES = {"qwen2-moe": (16, 1, 128), "stablelm": (32, 1, 80),
+               "llama3.2": (8, 3, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(HEAD_SHAPES))
+@pytest.mark.parametrize("dtype", list(TORCH_DTYPES))
+def test_cuda_kernels_at_served_head_shapes(cuda, dtype, shape):
+    """Both kernels against their plain versions at G = 1, hd 80 and
+    G = 3, with contexts that cross the decode splits and chunks that
+    cross the ragged kernel's row and key tiles."""
+    tdt, tol = TORCH_DTYPES[dtype]
+    kv, g, hd = HEAD_SHAPES[shape]
+    args = to_torch(paged_case(5, 3, kv, g, hd, 16, 40, 128), tdt, cuda)
+    assert_close(as_np(paged_attention(*args)),
+                 as_np(paged_attention_ref(*args)), tol)
+    args = to_torch(ragged_case(6, [(130, 37), (65, 0), (1, 300)], kv, g, hd,
+                                16, 24, 96), tdt, cuda)
+    assert_close(as_np(ragged_segment_attention(*args)),
+                 as_np(ragged_segment_attention_ref(*args)), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, shape", [
+    ("qwen2-moe-a2.7b", dict(num_kv_heads=4)),
+    ("llama3.2-3b", dict(num_heads=6, num_kv_heads=2)),
+    ("stablelm-3b", dict(num_kv_heads=4, head_dim=80)),
+], ids=["moe-G1", "G3", "hd80"])
+def test_cuda_engine_serves_the_families_head_shapes(cuda, arch, shape):
+    """The reduced MoE model and the G = 3 and hd-80 decoders drain on the
+    CUDA kernels token-identically to the plain versions (fp32, chunked
+    prefill, prefix cache), launching both kernels."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              **shape)
+    model = LanguageModel(cfg)
+    params = model.init_params(torch.Generator(cuda).manual_seed(0), cuda)
+    outs = {}
+    for backend in ("ref", "cuda"):
+        serving.reset_request_ids()
+        runner = serving.PagedModelRunner(model, params, num_blocks=64,
+                                          block_size=8, max_batch=4,
+                                          backend=backend, device=cuda)
+        eng = serving.LLMEngine(runner, max_batch=4, enable_prefix_cache=True,
+                                prefill_chunk_tokens=16)
+        rng = np.random.default_rng(3)
+        system = rng.integers(0, 500, 16)
+        for i in range(4):
+            toks = np.concatenate([system, rng.integers(0, 500, 9 + 5 * i)])
+            eng.submit(serving.Request(
+                agent_name="a", msg_id=f"m{i}", prompt_len=len(toks),
+                prompt_tokens=toks.astype(np.int32), max_new_tokens=8))
+        before = (paged_attention.launches, ragged_segment_attention.launches)
+        done = eng.run_until_drained(4000)
+        launched = (paged_attention.launches - before[0],
+                    ragged_segment_attention.launches - before[1])
+        assert (min(launched) > 0) == (backend == "cuda")
+        outs[backend] = sorted((r.msg_id, tuple(int(t) for t in
+                                                r.output_tokens))
+                               for r in done)
+    assert outs["cuda"] == outs["ref"]
+
+
 def _stream_engines(cuda):
     """Two engines on one card (reduced qwen3-1.7b, bf16, seeded weights),
     each with 4 requests whose contexts span 2-4 of the decode kernel's

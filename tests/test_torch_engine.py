@@ -49,7 +49,7 @@ def port_model(jax_runners):
     cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
                               dtype="float32")
     params = params_from_jax(jax.tree_util.tree_map(np.asarray,
-                                                    jax_runners[0]), cfg,
+                                                    jax_runners[0]),
                              device="cpu")
     return LanguageModel(cfg), params
 

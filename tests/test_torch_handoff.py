@@ -60,7 +60,7 @@ def models():
     cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
                               dtype="float32")
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
-                             cfg, device="cpu")
+                             device="cpu")
     jrunner = jserving.PagedModelRunner(jmodel, jparams, num_blocks=64,
                                         block_size=8, max_batch=4)
     return jmodel, jparams, jrunner, LanguageModel(cfg), params

@@ -52,7 +52,7 @@ def _models(dtype):
     cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
                               dtype=dtype)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
-                             cfg, device="cpu")
+                             device="cpu")
     return jmodel, jparams, LanguageModel(cfg), params
 
 
