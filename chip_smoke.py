@@ -66,7 +66,10 @@ fails prints its error and the script exits non-zero.
              a 1-instance cluster under a burst and shrinks it through
              migration; a tight ``slo_e2e_s`` sheds part of a 32-request
              burst and completes the rest; the tracer exports to a Chrome
-             trace and reads back loss-free.  Then, at 4 layers in float32,
+             trace and reads back loss-free.  The migration pair runs once
+             more on the plain versions of both kernels (``backend="ref"``),
+             reporting how many bf16 streams diverge there.  Then, at 4
+             layers in float32,
              the legacy, migrated and disaggregated streams against the
              fused, unmigrated and colocated ones under the margin rule.
 
@@ -95,6 +98,24 @@ fails prints its error and the script exits non-zero.
              token longer in bf16 (2e-2) and in float32 at 2 layers (1e-4).
              kimi-k2-1t-a32b is not run on the card (one MoE layer alone
              holds 16.9 B parameters); the CPU tests cover it.
+9. train     the training path (model-level causal attention: neither
+             kernel may launch): full-width qwen3-1.7b in bf16 (1,720,574,976
+             seeded parameters) on ``PackedStream`` batches of 4 x 1024
+             tokens through ``make_train_step``, 20 Adam steps, then 10
+             Adafactor steps from fresh weights; the loss of each must
+             fall.  Each reports its losses, median step seconds split
+             into forward, backward and update (CUDA events), tokens/s,
+             model FLOPs over the bf16 peak (``mfu``), peak GB and one
+             profiled step; Adam's run also times forward + backward with
+             the layer stacks indexed per layer against unbound once.
+             qwen2-moe-a2.7b at its published widths and 4 of 24 layers
+             trains 5 Adam steps at 2 x 1024.  Every reduced arch, in
+             float32: loss and every gradient leaf on the card against the
+             CPU, then one Adam and one Adafactor update from the same
+             params, gradients and state, all within 1e-4 of each leaf's
+             largest magnitude (rwkv6's gradients 1e-3: see
+             TRAIN_TOL_BY_ARCH); one ``train_step`` on each device's own
+             gradients is reported beside them.
 
 Then the per-kernel summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -108,6 +129,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1345,14 +1367,14 @@ def el_cluster(model, params, **cfg):
     """A ``ServingCluster.from_config`` of full-width-like instances:
     2048 blocks of 16 tokens, 16 sequences, prefix cache, 512-token
     chunks, FCFS; ``cfg`` overrides any of it and adds cluster kwargs
-    (``clock``, ``tracer``, ``pipelined``)."""
+    (``clock``, ``tracer``, ``pipelined``) and the runners' ``backend``."""
     from repro_torch.core import HardwareProfile, Orchestrator
     from repro_torch.serving import (
         ServingCluster,
         ServingConfig,
         reset_request_ids,
     )
-    kw = {k: cfg.pop(k) for k in ("clock", "tracer", "pipelined")
+    kw = {k: cfg.pop(k) for k in ("clock", "tracer", "pipelined", "backend")
           if k in cfg}
     config = dict(n_instances=2, num_blocks=EL_BLOCKS, block_size=16,
                   max_batch=16, prefix_caching=True, prefill_chunk_tokens=512,
@@ -1510,14 +1532,15 @@ def el_out_of_place(model, params, seed: int, vocab: int) -> dict:
 
 
 def el_migration(model, params, seed: int, vocab: int, tracer,
-                 pipelined=True):
+                 pipelined=True, backend=None):
     """A 2-instance cluster drains the 16 requests and retires instance 1
     once one of its requests has 4 tokens, checking the moved blocks
     read back bit-equal from the target's pool.  Returns (report,
     streams)."""
     from repro_torch import serving
     migration = importlib.import_module("repro_torch.serving.migration")
-    cluster = el_cluster(model, params, tracer=tracer, pipelined=pipelined)
+    cluster = el_cluster(model, params, tracer=tracer, pipelined=pipelined,
+                         backend=backend)
     rec = {}
 
     def extra(out, args):
@@ -1591,13 +1614,13 @@ def el_migration(model, params, seed: int, vocab: int, tracer,
 
 
 def el_unmigrated(model, params, seed: int, vocab: int, pipelined=True,
-                  margins=None):
+                  margins=None, backend=None):
     """The 16 requests on a 2-instance general cluster, never resized: the
     migration run's and the disaggregated run's baseline.  With
     ``margins`` (a list), the serial loop records the runners' margins
     into it."""
     from repro_torch import serving
-    cluster = el_cluster(model, params, pipelined=pipelined)
+    cluster = el_cluster(model, params, pipelined=pipelined, backend=backend)
     if margins is not None:
         require(not pipelined, "margins need the serial loop")
         log, undo = record_margins(*(e.runner for e in cluster.engines))
@@ -1803,6 +1826,15 @@ def phase_elastic(state, seed: int):
     out["migration"]["bf16_streams_diverged_from_unmigrated"] = divergences(
         migrated, unmigrated)
     out["migration"]["unmigrated_wall_s"] = wall
+    # the same pair on the plain versions of both kernels: if its streams
+    # also diverge, the kernels are not what makes migrated rows differ
+    _, migrated = el_migration(model, params, seed, vocab, Tracer(),
+                               backend="ref")
+    release_pools()
+    unmigrated, _ = el_unmigrated(model, params, seed, vocab, backend="ref")
+    release_pools()
+    out["migration"]["ref_bf16_streams_diverged_from_unmigrated"] = (
+        divergences(migrated, unmigrated))
     counted("disaggregation",
             lambda: el_disagg(model, params, seed, vocab))
     counted("autoscaler", lambda: el_autoscale(model, params, seed, vocab))
@@ -2363,12 +2395,471 @@ def phase_families(state, seed: int):
             "card": state["smi"]}
 
 
+# =============================================================================
+# phase 9: training (no attention kernel: the model-level causal attention)
+# =============================================================================
+
+TRAIN_SEQ = 1024
+TRAIN_BATCH = 4                   # qwen3-1.7b: 4096 tokens a step
+TRAIN_STEPS = {"adam": 20, "adafactor": 10}
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_BATCH = 2
+MOE_TRAIN_STEPS = 5
+TRAIN_TOL = 1e-4                  # card against CPU, float32, scaled
+# rwkv6's float32 gradients round differently on the card and the CPU by
+# 3.4e-4 of a leaf's scale here (every other arch: under 2e-6).  The
+# rounding is the function's at these weights, not the card's: the CPU's
+# float32 gradients lie 2.8e-4 from a float64 evaluation, ``jax.grad``'s
+# 2.9e-4 (tests/test_torch_training.py, test_float32_gradients_as_far_
+# from_float64_as_jax).  Held at 1e-3, and every arch's card gradients
+# are held to the float64 ones no farther than FLOAT64_RATIO times the
+# CPU's distance (or TRAIN_TOL).
+TRAIN_TOL_BY_ARCH = {"rwkv6-3b": 1e-3}
+FLOAT64_RATIO = 2.0
+REDUCED_BATCH = (2, 32)
+# the built tree, its 123,904 fp32 norm scales included
+# (``ModelConfig.param_count()`` leaves them out: 1,720,451,072)
+QWEN3_PARAMS = 1_720_574_976
+BF16_PEAK = PEAK_OPS_PER_S["bfloat16"]
+
+
+def model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 x parameters x tokens, plus
+    causal attention's two products (forward 2 x B x S^2 x H x hd a
+    layer with the mask's half, three times that with the backward)."""
+    n_attn = len(cfg.attn_layer_indices)
+    return (6.0 * n_params * batch * seq
+            + 6.0 * batch * seq * seq * cfg.num_heads
+            * cfg.resolved_head_dim * n_attn)
+
+
+def active_params(params, cfg) -> int:
+    """Parameters a token's step touches: every leaf, but of each routed
+    expert stack only top_k of num_experts."""
+    total = count_params(params)
+    if cfg.moe is None:
+        return total
+    experts = sum(v.numel() for k, v in params["layers"]["moe"].items()
+                  if k in ("w_gate", "w_up", "w_down"))
+    m = cfg.moe
+    return total - experts * (m.num_experts - m.top_k) // m.num_experts
+
+
+def update_bytes(state) -> int:
+    """The least bytes an optimizer update moves: each param and optimizer
+    leaf read and written once, each gradient (the param's dtype) read
+    once."""
+    from repro_torch.training.optimizer import tree_leaves
+    p = sum(t.numel() * t.element_size()
+            for t in tree_leaves(state["params"]))
+    o = sum(t.numel() * t.element_size() for t in tree_leaves(state["opt"]))
+    return 3 * p + 2 * o
+
+
+class StepClock:
+    """CUDA events at the step's three parts: ``model.loss`` (forward),
+    the backward, and the optimizer update (the module's ``*_update``
+    function, which ``make_optimizer``'s update calls), each also a
+    ``record_function`` range for the profiler.  ``split()`` gives each
+    part's device-stream ms of every step since the last call."""
+
+    PARTS = ("forward", "backward", "update")
+
+    def __init__(self, model, kind: str):
+        import torch
+        from torch.profiler import record_function
+        from repro_torch.training import optimizer
+        self.model, self.mod = model, optimizer
+        self.name = f"{kind}_update"
+        self.orig_update = getattr(optimizer, self.name)
+        self.marks = []
+        ev = lambda: torch.cuda.Event(enable_timing=True)
+
+        def loss(*a, **kw):
+            e0 = ev()
+            e0.record()
+            with record_function("train.forward"):
+                out = type(model).loss(model, *a, **kw)
+            e1 = ev()
+            e1.record()
+            self.marks.append([e0, e1])
+            return out
+
+        def update(*a, **kw):
+            e2 = ev()
+            e2.record()
+            with record_function("train.update"):
+                out = self.orig_update(*a, **kw)
+            e3 = ev()
+            e3.record()
+            self.marks[-1] += [e2, e3]
+            return out
+
+        model.loss = loss
+        setattr(optimizer, self.name, update)
+
+    def split(self) -> list:
+        import torch
+        torch.cuda.synchronize()
+        out = [{p: a.elapsed_time(b) for p, (a, b) in zip(
+            self.PARTS, ((m[0], m[1]), (m[1], m[2]), (m[2], m[3])))}
+               for m in self.marks]
+        self.marks = []
+        return out
+
+    def close(self):
+        del self.model.loss
+        setattr(self.mod, self.name, self.orig_update)
+
+
+def profiled_step(train_step, state, batch):
+    """One step under torch.profiler: the card's busy and idle shares of
+    the step's wall, the busy ms of the kernels that start inside the
+    forward and update ranges' device spans (the backward: the rest), and
+    the kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ranges = ("train.forward", "train.update")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    busy = device_busy(events, wall, ranges=ranges)
+    require(busy is not None, "the profiler saw no device activity")
+    spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CUDA and e.name in ranges}
+    parts = {"forward": 0.0, "backward": 0.0, "update": 0.0}
+    by_kernel = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in ranges:
+            continue
+        s = e.time_range.start
+        by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                             + (e.time_range.end - s) * 1e-3)
+        part = next((p for p, r in (("forward", "train.forward"),
+                                    ("update", "train.update"))
+                     if r in spans and spans[r][0] <= s <= spans[r][1]),
+                    "backward")
+        parts[part] += (e.time_range.end - s) * 1e-3
+    busy["busy_ms_by_part"] = parts if len(spans) == 2 else None
+    busy["top_kernels_ms"] = [[n[:80], ms] for n, ms in sorted(
+        by_kernel.items(), key=lambda kv: -kv[1])[:10]]
+    busy["kernel_launches"] = sum(e.count for e in prof.key_averages()
+                                  if e.key == "cudaLaunchKernel")
+    return state, busy
+
+
+def train_run(model, kind: str, steps: int, seed: int, batch: int,
+              seq: int) -> tuple:
+    """``steps`` steps of ``make_train_step(model, kind)`` from seeded
+    weights on PackedStream batches, then one profiled step.  Model FLOPs
+    count the active parameters.  Returns (report, state)."""
+    import torch
+    from repro_torch.training.data import DataConfig, PackedStream
+    from repro_torch.training.optimizer import make_train_step
+    cfg = model.cfg
+    release_pools()
+    torch.cuda.reset_peak_memory_stats()
+    init_state, train_step = make_train_step(model, kind)
+    state = init_state(torch.Generator(device=DEVICE).manual_seed(seed),
+                       DEVICE)
+    n_params = count_params(state["params"])
+    data = PackedStream(DataConfig(cfg.vocab_size, seq, batch, seed))
+    clock = StepClock(model, kind)
+    losses, auxes, secs = [], [], []
+    try:
+        for step in range(steps):
+            b = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in data.batch(step).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = train_step(state, b)
+            loss = float(met["loss"])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            require(np.isfinite(loss), f"{cfg.name} {kind}: loss {loss} at "
+                    f"step {step}")
+            losses.append(loss)
+            auxes.append(float(met["aux"]))
+        split = clock.split()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        b = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in data.batch(steps).items()}
+        state, prof = profiled_step(train_step, state, b)
+        clock.split()
+    finally:
+        clock.close()
+    med = statistics.median(secs[1:])
+    active = active_params(state["params"], cfg)
+    flops = model_flops(cfg, active, batch, seq)
+    report = {
+        "optimizer": kind, "steps": steps, "batch": batch, "seq": seq,
+        "tokens_per_step": batch * seq, "parameters": n_params,
+        "active_parameters": active,
+        "loss_first_5": losses[:5], "loss_last_5": losses[-5:],
+        "aux_first_last": [auxes[0], auxes[-1]],
+        "first_step_s": secs[0], "step_s_median": med,
+        "ms_median_by_part": {p: statistics.median(s[p] for s in split[1:])
+                              for p in StepClock.PARTS},
+        "tokens_per_s": batch * seq / med,
+        "model_tflop_per_step": flops / 1e12,
+        "mfu": flops / med / BF16_PEAK,
+        "peak_gb": peak,
+        "update_bound_ms": update_bytes(state) / HBM_BYTES_PER_S * 1e3,
+        "profiled_step": prof}
+    return report, state
+
+
+def layer_index_cost(model, params, seed: int, batch: int, seq: int):
+    """Forward + backward seconds and peak GB with the stacked params
+    unbound once (``layer_list``, the training path) against indexed
+    per layer (``layer_slice``), whose backward scatters each layer's
+    gradient into a zero tensor of the whole stack; runs unbind, index,
+    index, unbind."""
+    import torch
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.layers import layer_slice
+    from repro_torch.training.data import DataConfig, PackedStream
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    data = PackedStream(DataConfig(model.cfg.vocab_size, seq, batch, seed))
+    b = {k: torch.from_numpy(v).to(DEVICE)
+         for k, v in data.batch(0).items()}
+    orig = model_mod.layer_list
+    indexed = lambda layers, n: [layer_slice(layers, i) for i in range(n)]
+    out = {"unbind": [], "index": []}
+    peaks = {}
+    for name in ("unbind", "index", "index", "unbind"):
+        model_mod.layer_list = indexed if name == "index" else orig
+        try:
+            release_pools()
+            torch.cuda.reset_peak_memory_stats()
+            tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = model.loss(tracked, b)
+            grads = torch.autograd.grad(loss, tree_leaves(tracked))
+            torch.cuda.synchronize()
+            out[name].append(time.perf_counter() - t0)
+            peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+            del tracked, loss, grads
+        finally:
+            model_mod.layer_list = orig
+    return {"fwd_bwd_s": out, "peak_gb": peaks,
+            "index_minus_unbind_s": statistics.mean(out["index"])
+            - statistics.mean(out["unbind"])}
+
+
+def float64_loss_grads(model, params, batch) -> list:
+    """[loss] + every gradient leaf of the port evaluated in float64 on
+    the CPU: each float32 dtype argument and each ``Tensor.float()``
+    becomes float64.  The layers keep their activations, since a
+    checkpoint's recompute runs outside the mode."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.models import model as model_mod
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    class Float64(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.float:
+                return args[0].double()
+            wide = lambda a: torch.float64 if a is torch.float32 else a
+            return func(*map(wide, args),
+                        **{k: wide(v) for k, v in (kwargs or {}).items()})
+
+    orig = model_mod.checkpoint
+    model_mod.checkpoint = lambda fn, *a, **kw: fn(*a)
+    try:
+        with Float64():
+            tracked = tree_map(
+                lambda p: p.detach().double().requires_grad_(), params)
+            loss, _ = model.loss(tracked, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(tracked),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+    finally:
+        model_mod.checkpoint = orig
+    require(all(g.dtype == torch.float64 for g in grads),
+            "the float64 evaluation left float64")
+    return [loss.detach()] + list(grads)
+
+
+def card_vs_cpu(arch: str, seed: int) -> dict:
+    """A reduced arch in float32: loss and every gradient leaf on the card
+    against the same port on the CPU from the same weights, and both
+    against the port's float64 evaluation (the card no farther from it
+    than ``FLOAT64_RATIO`` times the CPU, or ``TRAIN_TOL``); then one Adam
+    and one Adafactor update on the card against the CPU's from the same
+    params, gradients (the CPU's) and state, the new params and optimizer
+    state held the same way.  The first Adam step moves a parameter by
+    lr * g / (|g| + eps): a gradient element within rounding of zero
+    (some 1e-9 of a few in every 10^5-element leaf) turns the two
+    devices' rounding differences into up to lr of parameter, so the
+    update is held on shared gradients, and ``train_step`` on each
+    device's own gradients is reported (``step_param_err``), not held."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import (
+        make_optimizer,
+        make_train_step,
+        tree_leaves,
+        tree_map,
+    )
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(seed), "cpu")
+    rng = np.random.default_rng(seed)
+    nb = {k: rng.integers(0, cfg.vocab_size, REDUCED_BATCH).astype(np.int32)
+          for k in ("tokens", "labels")}
+    if cfg.is_encdec:
+        nb["frames"] = rng.standard_normal(
+            (*REDUCED_BATCH, cfg.d_model)).astype(np.float32)
+
+    def on(device, tree=params):
+        """Copies of ``tree`` and the batch on ``device``: the updates
+        write into the tensors they are given."""
+        return (tree_map(lambda p: p.detach().clone().to(device), tree),
+                {k: torch.from_numpy(v).to(device) for k, v in nb.items()})
+
+    def loss_grads(device):
+        p, b = on(device)
+        tracked = tree_map(lambda t: t.requires_grad_(), p)
+        loss, _ = model.loss(tracked, b)
+        grads = torch.autograd.grad(loss, tree_leaves(tracked),
+                                    allow_unused=True, materialize_grads=True)
+        return [loss.detach()] + list(grads)
+
+    beyond = []
+
+    def worst(got, want, what, hold=True, tol=TRAIN_TOL) -> float:
+        """The largest error over a leaf's scale; with ``hold`` each leaf
+        past ``tol`` is listed in ``row["beyond_tol"]``."""
+        err = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            g, w = g.detach().double().cpu(), w.detach().double().cpu()
+            scale = max(1.0, float(w.abs().max()))
+            e = float((g - w).abs().max()) / scale
+            if hold and not bool(((g - w).abs() <= tol * scale
+                                  + tol * w.abs()).all()):
+                beyond.append([what, i, e])
+            err = max(err, e)
+        return err
+
+    cpu = loss_grads("cpu")
+    row = {"leaves": len(tree_leaves(params)), "loss": float(cpu[0]),
+           "beyond_tol": beyond,
+           "grad_tol": TRAIN_TOL_BY_ARCH.get(arch, TRAIN_TOL)}
+    card = loss_grads(DEVICE)
+    row["grad_err"] = worst(card, cpu, "grad", tol=row["grad_tol"])
+    f64 = float64_loss_grads(model, params, on("cpu")[1])
+    row["cpu_float64_err"] = worst(cpu, f64, "cpu-float64", hold=False)
+    row["card_float64_err"] = worst(card, f64, "card-float64", hold=False)
+    limit = max(TRAIN_TOL, FLOAT64_RATIO * row["cpu_float64_err"])
+    if row["card_float64_err"] > limit:
+        beyond.append(["card-float64", None, row["card_float64_err"], limit])
+    it = iter(cpu[1:])
+    grads = tree_map(lambda _: next(it), params)
+    for kind in ("adam", "adafactor"):
+        _, init, update = make_optimizer(kind)
+        new = {}
+        for device in (DEVICE, "cpu"):
+            p, _ = on(device)
+            g, _ = on(device, grads)
+            step = torch.zeros((), dtype=torch.int32, device=device)
+            new_p, new_s = update(p, g, init(p), step)
+            new[device] = tree_leaves({"params": new_p, "opt": new_s})
+        row[f"{kind}_update_err"] = worst(new[DEVICE], new["cpu"], kind)
+        _, train_step = make_train_step(model, kind)
+        for device in (DEVICE, "cpu"):
+            p, b = on(device)
+            state = {"params": p, "opt": init(p),
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device=device)}
+            state, met = train_step(state, b)
+            require(bool(torch.isfinite(met["loss"])),
+                    f"{arch} {kind}: non-finite loss on {device}")
+            new[device] = tree_leaves(state["params"])
+        row[f"{kind}_step_param_err"] = worst(new[DEVICE], new["cpu"],
+                                              kind, hold=False)
+    return row
+
+
+def phase_train(state, seed: int):
+    import torch
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    from repro_torch.models import LanguageModel
+    release_pools()
+    paged_attention.launches = 0
+    ragged_segment_attention.launches = 0
+    out = {"card": state["smi"]}
+
+    # (a) full-width qwen3-1.7b, bf16: Adam, then Adafactor from fresh weights
+    cfg = full_config()
+    model = LanguageModel(cfg)
+    qwen3 = {}
+    for kind, steps in TRAIN_STEPS.items():
+        report, st = train_run(model, kind, steps, seed, TRAIN_BATCH,
+                               TRAIN_SEQ)
+        require(report["parameters"] == QWEN3_PARAMS,
+                f"{report['parameters']} parameters built")
+        first = statistics.mean(report["loss_first_5"])
+        last = statistics.mean(report["loss_last_5"])
+        start = min(report["loss_first_5"][0], math.log(cfg.vocab_size))
+        require(last < first and last < start,
+                f"qwen3-1.7b {kind}: loss {first} (the first 5 steps' mean) "
+                f"-> {last}; the last 5 must also lie below {start}, the "
+                f"first step's loss or ln V")
+        if kind == "adam":
+            report["layer_index_cost"] = layer_index_cost(
+                model, st["params"], seed, TRAIN_BATCH, TRAIN_SEQ)
+        del st
+        qwen3[kind] = report
+    out["qwen3-1.7b"] = {"layers": cfg.num_layers, "dtype": cfg.dtype,
+                         **qwen3}
+
+    # (b) qwen2-moe-a2.7b at its published widths, 4 of 24 layers
+    mcfg = cut(moe_config(), MOE_TRAIN_LAYERS)
+    report, st = train_run(LanguageModel(mcfg), "adam", MOE_TRAIN_STEPS,
+                           seed, MOE_TRAIN_BATCH, TRAIN_SEQ)
+    del st
+    require(all(a > 0 for a in report["aux_first_last"]),
+            "the MoE aux loss is not in the loss")
+    out["qwen2-moe-a2.7b"] = {"layers": mcfg.num_layers,
+                              "cut": f"24 -> {MOE_TRAIN_LAYERS} layers",
+                              "dtype": mcfg.dtype, **report}
+    release_pools()
+
+    # (c) every reduced arch in float32: the card against the CPU
+    out["reduced_card_vs_cpu"] = rows = {arch: card_vs_cpu(arch, seed)
+                                         for arch in ARCH_IDS}
+    bad = {a: r["beyond_tol"] for a, r in rows.items() if r["beyond_tol"]}
+    require(not bad, f"card and CPU differ beyond tolerance (what, leaf, "
+            f"error over the leaf's scale): {bad}")
+    launches = {"paged_attention": paged_attention.launches,
+                "ragged_segment_attention": ragged_segment_attention.launches}
+    require(not any(launches.values()),
+            f"training launched an attention kernel: {launches}")
+    state["train_launches"] = launches
+    out["kernel_launches"] = launches
+    return out
+
+
 def kernels_line(state):
-    """One row per kernel.  The main path is this slice's, the MoE drain
-    (phase 7): ``launches`` counts its fused drain, and the times, bound
-    and error are at its shape (KV 16, G 1, hd 128; 16 decode sequences
-    at contexts 256-4096, 4 chunks of 512), bf16.  ``by_shape`` holds the
-    earlier slices' qwen3-1.7b shape and the other served head shapes."""
+    """One row per kernel.  ``launches`` counts the MoE drain's fused
+    path (phase 7), and the times, bound and error are at its shape (KV
+    16, G 1, hd 128; 16 decode sequences at contexts 256-4096, 4 chunks
+    of 512), bf16.  ``launches_by_path`` holds every phase's count, the
+    training phase's 0 included (it runs the model-level attention).
+    ``by_shape`` holds the qwen3-1.7b shape and the other served head
+    shapes."""
     rows = []
     for name, src, replaces, bodies in (
             ("paged_attention", PAGED_SRC,
@@ -2393,7 +2884,8 @@ def kernels_line(state):
                 "workflow": state["workflow_launches"][name],
                 "elastic": state["elastic_launches"][name],
                 "moe": state["moe_launches"][name],
-                "families": state["families_launches"][name]},
+                "families": state["families_launches"][name],
+                "train": state["train_launches"][name]},
             "max_abs_err":
                 state["shape_errs"]["qwen2-moe"][f"{short}_bfloat16_full"],
             "ms": t["kernel_ms"], "plain_ms": t["ref_ms"],
@@ -2451,7 +2943,8 @@ def main(argv=None) -> int:
               ("workflow", lambda: phase_workflow(state, args.seed)),
               ("elastic", lambda: phase_elastic(state, args.seed)),
               ("moe", lambda: phase_moe(state, args.seed)),
-              ("families", lambda: phase_families(state, args.seed)))
+              ("families", lambda: phase_families(state, args.seed)),
+              ("train", lambda: phase_train(state, args.seed)))
     for name, run in phases:
         t0 = time.perf_counter()
         try:

@@ -11,18 +11,21 @@ groups), so the two compute the same function on the same weights
 
 Public entry points:
   init_params(generator, device)          -> params (seeded initialiser)
+  loss(params, batch)                     -> (scalar, metrics)  train
   prefill(params, tokens[, frames])       -> (logits, cache)
   decode_step(params, cache, tokens)      -> (logits, cache)  one token
   init_cache(batch, max_len[, enc_len])   -> zeroed cache dict
 
-Training (``loss``) raises ``NotImplementedError``: it is ported with the
-optimizer and the data pipeline.
+``loss`` builds the autograd graph, recomputing each layer (each Jamba
+super-block) in the backward as the reference's ``jax.checkpoint`` does;
+``prefill`` and ``decode_step`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -32,15 +35,14 @@ from repro_torch.models.layers import (
     embed_tokens,
     init_embedding,
     init_ffn,
+    layer_list,
     layer_slice,
     lm_logits,
     rms_norm,
+    softmax_cross_entropy,
     swiglu,
 )
 from repro_torch.models.moe import init_moe, moe_ffn
-
-_TRAINING = ("training is not ported yet: the optimizer, data pipeline "
-             "and loss come with ROADMAP.md Queue 1 item 2")
 
 
 def _zeros(lead, d, device) -> torch.Tensor:
@@ -70,13 +72,35 @@ def _init_mamba_layer(generator, cfg, dtype, device, lead, ffn_kind) -> dict:
     return _ffn_or_moe(p, generator, cfg, dtype, device, lead, ffn_kind)
 
 
-def ffn_block(lp: dict, h2: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ffn_with_aux(lp: dict, h2: torch.Tensor, cfg: ModelConfig):
     """The layer's FFN: routed experts where it has them, else SwiGLU.
+    Returns (out, the MoE load-balance loss, or None for a dense FFN).
     The MoE FFN sees every row of ``h2``, padding included: its capacity,
     and so which assignments drop, depends on them, as in the reference."""
     if "moe" in lp:
-        return moe_ffn(lp["moe"], h2, cfg)[0]
-    return swiglu(h2, **lp["ffn"])
+        return moe_ffn(lp["moe"], h2, cfg)
+    return swiglu(h2, **lp["ffn"]), None
+
+
+def ffn_block(lp: dict, h2: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`ffn_with_aux` without the aux loss (the serving steps)."""
+    return ffn_with_aux(lp, h2, cfg)[0]
+
+
+def _add_aux(total, aux):
+    """The running sum of MoE aux losses; None while there is none (so a
+    dense model's serving path adds no op)."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+def _run_layer(train: bool, fn, *args):
+    """``fn(*args)``; when ``train`` its activations are recomputed in the
+    backward instead of kept (the reference's ``jax.checkpoint``)."""
+    if train:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # =============================================================================
@@ -220,16 +244,23 @@ class LanguageModel:
         return cache
 
     # =========================================================================
-    # layer bodies (shared by prefill / decode)
+    # layer bodies (shared by train / prefill / decode)
     # =========================================================================
-    def _attn_layer_fwd(self, lp, x, is_global):
+    def _attn_layer_fwd(self, lp, x, is_global, train=False):
+        """-> (x, MoE aux or None, the layer's stacked (K, V); None when
+        ``train``)."""
         cfg = self.cfg
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        o, kv = attn.causal_attention(lp["attn"], h, cfg, is_global=is_global,
-                                      return_kv=True)
+        if train:
+            o, kv = attn.causal_attention(lp["attn"], h, cfg,
+                                          is_global=is_global), None
+        else:
+            o, kv = attn.causal_attention(lp["attn"], h, cfg,
+                                          is_global=is_global, return_kv=True)
+            kv = torch.stack(kv)
         x = x + o
-        return x + ffn_block(lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
-                              cfg), torch.stack(kv)
+        f, aux = ffn_with_aux(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+        return x + f, aux, kv
 
     def _attn_layer_decode(self, lp, x, cache_kv, pos, is_global):
         cfg = self.cfg
@@ -258,43 +289,67 @@ class LanguageModel:
                                 rms_norm(x, lp["ln1"], cfg.norm_eps),
                                 h_state, conv_state, cfg)
         x = x + o
-        return x + ffn_block(lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
-                              cfg), new_h, new_conv
+        f, aux = ffn_with_aux(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+        return x + f, aux, new_h, new_conv
+
+    def _jamba_block_fwd(self, blk, x, h0, c0, train=False):
+        """One super-block: -> (x, summed MoE aux or None, its attention
+        layers' K/V, its Mamba states, its conv windows)."""
+        aux = None
+        kvs, hs, convs = [], [], []
+        for kind, _, lp in self._block_layers(blk):
+            if kind == "attn":
+                x, a, kv = self._attn_layer_fwd(lp, x, None, train)
+                kvs.append(kv)
+            else:
+                x, a, nh, nc = self._mamba_layer_fwd(lp, x, h0, c0, False)
+                hs.append(nh)
+                convs.append(nc)
+            aux = _add_aux(aux, a)
+        return x, aux, kvs, hs, convs
 
     # =========================================================================
-    # full-sequence forward (prefill)
+    # full-sequence forward (train / prefill)
     # =========================================================================
-    @torch.no_grad()
-    def _forward_seq(self, params: dict, tokens: torch.Tensor):
-        """tokens (B, S) -> final-normed hidden (B, S, d) and the cache of
-        the whole sequence."""
+    def _forward_seq(self, params: dict, tokens: torch.Tensor,
+                     train: bool = False):
+        """tokens (B, S) -> (final-normed hidden (B, S, d), the MoE aux
+        loss summed over the layers (fp32 scalar; None without MoE), the
+        cache of the whole sequence).  With ``train`` no cache is built
+        (None), and each layer, each Jamba super-block, is checkpointed."""
         cfg = self.cfg
         x = embed_tokens(params, tokens).to(self.dtype)
         b, s = tokens.shape
         dev = x.device
-        cache = {"pos": s}
+        aux = None
+        cache = None if train else {"pos": s}
+        n = self.n_blocks if self.uniform_kind is None else cfg.num_layers
+        lps = layer_list(params["layers"], n)
         if self.uniform_kind == "attn":
             kvs = []
-            for i, flag in enumerate(self._layer_flags()):
-                x, kv = self._attn_layer_fwd(layer_slice(params["layers"], i),
-                                             x, flag)
+            for lp, flag in zip(lps, self._layer_flags()):
+                x, a, kv = _run_layer(train, self._attn_layer_fwd, lp, x,
+                                      flag, train)
+                aux = _add_aux(aux, a)
                 kvs.append(kv)
-            cache["kv"] = torch.stack(kvs)
+            if not train:
+                cache["kv"] = torch.stack(kvs)
         elif self.uniform_kind == "rwkv":
             h = cfg.d_model // cfg.rwkv_head_dim
             st0 = torch.zeros(b, h, cfg.rwkv_head_dim, cfg.rwkv_head_dim,
                               dtype=torch.float32, device=dev)
             sh0 = torch.zeros(b, cfg.d_model, dtype=self.dtype, device=dev)
             sts, sh1s, sh2s = [], [], []
-            for i in range(cfg.num_layers):
-                x, st, sh1, sh2 = self._rwkv_layer_fwd(
-                    layer_slice(params["layers"], i), x, st0, sh0, sh0, False)
+            for lp in lps:
+                x, st, sh1, sh2 = _run_layer(
+                    train, self._rwkv_layer_fwd, lp, x, st0, sh0, sh0, False)
                 sts.append(st)
                 sh1s.append(sh1.to(self.dtype))
                 sh2s.append(sh2.to(self.dtype))
-            cache.update(rwkv_state=torch.stack(sts),
-                         rwkv_shift1=torch.stack(sh1s),
-                         rwkv_shift2=torch.stack(sh2s))
+            if not train:
+                cache.update(rwkv_state=torch.stack(sts),
+                             rwkv_shift1=torch.stack(sh1s),
+                             rwkv_shift2=torch.stack(sh2s))
         else:  # jamba blocks
             di = cfg.ssm_expand * cfg.d_model
             h0 = torch.zeros(b, di, cfg.ssm_state_dim, dtype=torch.float32,
@@ -302,33 +357,39 @@ class LanguageModel:
             c0 = torch.zeros(b, cfg.ssm_conv_dim - 1, di, dtype=self.dtype,
                              device=dev)
             kvs, hs, convs = [], [], []
-            for j in range(self.n_blocks):
-                blk = layer_slice(params["layers"], j)
-                for kind, _, lp in self._block_layers(blk):
-                    if kind == "attn":
-                        x, kv = self._attn_layer_fwd(lp, x, None)
-                        kvs.append(kv)
-                    else:
-                        x, nh, nc = self._mamba_layer_fwd(lp, x, h0, c0,
-                                                          False)
-                        hs.append(nh)
-                        convs.append(nc)
-            cache.update(kv=torch.stack(kvs), mamba_h=torch.stack(hs),
-                         mamba_conv=torch.stack(convs))
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+            for blk in lps:
+                x, a, bkv, bh, bc = _run_layer(
+                    train, self._jamba_block_fwd, blk, x, h0, c0, train)
+                aux = _add_aux(aux, a)
+                kvs += bkv
+                hs += bh
+                convs += bc
+            if not train:
+                cache.update(kv=torch.stack(kvs), mamba_h=torch.stack(hs),
+                             mamba_conv=torch.stack(convs))
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, cache
 
     # =========================================================================
     # public API
     # =========================================================================
-    def loss(self, params, batch):
-        raise NotImplementedError(_TRAINING)
+    def loss(self, params: dict, batch: dict):
+        """batch {"tokens" (B, S), "labels" (B, S)[, "mask" (B, S)]} ->
+        (next-token cross entropy + the MoE aux loss, {"ce", "aux"}), with
+        the autograd graph to ``params``' leaves that require grad."""
+        x, aux, _ = self._forward_seq(params, batch["tokens"], train=True)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        logits = lm_logits(params, x, self.cfg)
+        ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+        return ce + aux, {"ce": ce, "aux": aux}
 
+    @torch.no_grad()
     def prefill(self, params: dict, tokens: torch.Tensor):
         """tokens (B, S) -> (last-token logits (B, V), cache); the cache
         holds ``pos = S`` and, by family, ``kv`` (L_attn, 2, B, S, KV,
         hd), the RWKV states and shifts, the Mamba states and conv
         windows."""
-        x, cache = self._forward_seq(params, tokens)
+        x, _, cache = self._forward_seq(params, tokens)
         return lm_logits(params, x[:, -1], self.cfg), cache
 
     @torch.no_grad()
@@ -374,7 +435,7 @@ class LanguageModel:
                         kvs.append(kv)
                         i_a += 1
                     else:
-                        x, nh, nc = self._mamba_layer_fwd(
+                        x, _, nh, nc = self._mamba_layer_fwd(
                             lp, x, cache["mamba_h"][i_m],
                             cache["mamba_conv"][i_m], True)
                         hs.append(nh)
@@ -421,13 +482,11 @@ class EncDecModel:
             "ffn": init_ffn(generator, d, cfg.d_ff, dtype, device, nd)}
         return params
 
-    @torch.no_grad()
     def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, S_enc, d) -> the encoder's final-normed output."""
         cfg = self.cfg
         x = frames.to(self.dtype)
-        for i in range(cfg.num_encoder_layers):
-            lp = layer_slice(params["encoder"], i)
+        for lp in layer_list(params["encoder"], cfg.num_encoder_layers):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             x = x + attn.causal_attention(lp["attn"], h, cfg, causal=False)
             h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -437,16 +496,20 @@ class EncDecModel:
     def _memory_kv(self, params: dict, memory: torch.Tensor) -> torch.Tensor:
         """(L, 2, B, S_enc, KV, hd): every decoder layer's cross K/V."""
         return torch.stack([
-            torch.stack(attn.project_memory_kv(
-                layer_slice(params["decoder"], i)["xattn"], memory, self.cfg))
-            for i in range(self.cfg.num_layers)])
+            torch.stack(attn.project_memory_kv(lp["xattn"], memory, self.cfg))
+            for lp in layer_list(params["decoder"], self.cfg.num_layers)])
 
-    def _decoder_layer(self, lp, x, mem_kv, cache_kv=None, pos=None):
+    def _decoder_layer(self, lp, x, mem_kv, cache_kv=None, pos=None,
+                       train=False):
+        """-> (x, the layer's new self-attention K/V; None when
+        ``train``)."""
         cfg = self.cfg
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cache_kv is not None:
             o, new_kv = attn.decode_attention(lp["attn"], h, cache_kv, pos,
                                               cfg)
+        elif train:
+            o, new_kv = attn.causal_attention(lp["attn"], h, cfg), None
         else:
             o, kv = attn.causal_attention(lp["attn"], h, cfg, return_kv=True)
             new_kv = torch.stack(kv)
@@ -457,8 +520,23 @@ class EncDecModel:
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         return x + swiglu(h2, **lp["ffn"]), new_kv
 
-    def loss(self, params, batch):
-        raise NotImplementedError(_TRAINING)
+    def loss(self, params: dict, batch: dict):
+        """batch {"frames" (B, S_enc, d), "tokens", "labels"[, "mask"]} ->
+        (cross entropy, {"ce", "aux": 0}).  The encoder and the memory
+        K/V run as they are; each decoder layer is checkpointed, as in the
+        reference."""
+        cfg = self.cfg
+        mkvs = self._memory_kv(params, self.encode(params, batch["frames"]))
+        x = embed_tokens(params, batch["tokens"]).to(self.dtype)
+        for lp, mkv in zip(layer_list(params["decoder"], cfg.num_layers),
+                           mkvs):
+            x, _ = _run_layer(True, self._decoder_layer, lp, x, mkv, None,
+                              None, True)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        ce = softmax_cross_entropy(lm_logits(params, x, cfg), batch["labels"],
+                                   batch.get("mask"))
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=x.device)}
 
     def init_cache(self, batch: int, max_len: int, enc_len: int,
                    device: Optional[torch.device] = None) -> dict:
@@ -483,9 +561,9 @@ class EncDecModel:
         mkvs = self._memory_kv(params, self.encode(params, frames))
         x = embed_tokens(params, tokens).to(self.dtype)
         kvs = []
-        for i in range(cfg.num_layers):
-            x, kv = self._decoder_layer(layer_slice(params["decoder"], i), x,
-                                        mkvs[i])
+        for lp, mkv in zip(layer_list(params["decoder"], cfg.num_layers),
+                           mkvs):
+            x, kv = self._decoder_layer(lp, x, mkv)
             kvs.append(kv)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         cache = {"pos": tokens.shape[1], "kv": torch.stack(kvs),

@@ -551,3 +551,35 @@ def test_cuda_migrate_many_between_two_engines(cuda):
     out = {r.msg_id: [int(t) for t in r.output_tokens] for r in done}
     out.update(drain(e0, e1))
     assert out == base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2-moe-a2.7b"])
+def test_cuda_loss_and_grads_match_cpu(cuda, arch):
+    """A reduced model's float32 loss and the gradient of every leaf on
+    the card against the same port on the CPU from the same weights, at
+    1e-4 with the absolute part scaled by the leaf's largest magnitude
+    (the MoE combine's backward accumulates atomically on the card)."""
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+
+    def loss_and_grads(device):
+        tracked = tree_map(
+            lambda p: p.detach().clone().to(device).requires_grad_(), params)
+        loss, _ = model.loss(tracked, {k: v.to(device)
+                                       for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(tracked),
+                                    allow_unused=True, materialize_grads=True)
+        return [loss.detach()] + list(grads)
+
+    for got, want in zip(loss_and_grads(cuda), loss_and_grads("cpu")):
+        want = as_np(want)
+        tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(as_np(got), want, rtol=1e-4, atol=tol)

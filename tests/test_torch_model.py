@@ -185,24 +185,34 @@ def _raise_windowed_paged_runner(model, params):
                      device="cpu")
 
 
-def _raise_training_loss(model, params):
-    model.loss(params, {})
-
-
 @pytest.mark.parametrize("case, error, match", [
     (_raise_tensor_parallel_config, NotImplementedError, "Queue 1 item 1"),
     (_raise_mesh_slices, NotImplementedError, "Queue 1 item 1"),
     (_raise_windowed_paged_runner, AssertionError, "windowed"),
-    (_raise_training_loss, NotImplementedError, "Queue 1 item 2"),
-], ids=["tensor-parallel-config", "mesh-slices", "windowed-paged-runner",
-        "training-loss"])
+], ids=["tensor-parallel-config", "mesh-slices", "windowed-paged-runner"])
 def test_unported_families_raise(models, case, error, match):
-    """Every family is ported; what still raises: tensor parallelism and
-    training, each naming its ROADMAP.md item, and a windowed config in
-    the paged runner, which the reference's runner refuses too."""
+    """Every family and training are ported; what still raises: tensor
+    parallelism, naming its ROADMAP.md item, and a windowed config in the
+    paged runner, which the reference's runner refuses too."""
     jm, jp, tm, tp = models
     with pytest.raises(error, match=match):
         case(tm, tp)
+
+
+def test_loss_is_a_finite_scalar(models):
+    """``loss`` (it raised until training was ported) returns a finite
+    fp32 scalar and its metrics, and matches the JAX package's."""
+    jm, jp, tm, tp = models
+    rng = np.random.default_rng(8)
+    batch = {k: rng.integers(0, 500, (2, 12)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    loss, metrics = tm.loss(tp, {k: torch.from_numpy(v)
+                                 for k, v in batch.items()})
+    assert loss.shape == () and loss.dtype == torch.float32
+    assert bool(torch.isfinite(loss))
+    assert set(metrics) == {"ce", "aux"} and float(metrics["aux"]) == 0.0
+    jloss, _ = jm.loss(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    close(loss, jloss, 1e-4 if tm.cfg.dtype == "float32" else 2e-2, True)
 
 
 def test_port_imports_no_jax():
@@ -219,6 +229,8 @@ def test_port_imports_no_jax():
             "repro_torch.core.distributions, repro_torch.core.memory_model, "
             "repro_torch.core.orchestrator, repro_torch.core.priority, "
             "repro_torch.core.scheduler, repro_torch.core.workflow\n"
+            "import repro_torch.training, repro_torch.training.data, "
+            "repro_torch.training.optimizer, repro_torch.train_small\n"
             "import repro_torch.serving.migration, "
             "repro_torch.serving.handoff, repro_torch.serving.autoscaler, "
             "repro_torch.sim, repro_torch.sim.cost_model, "
