@@ -116,6 +116,20 @@ fails prints its error and the script exits non-zero.
              largest magnitude (rwkv6's gradients 1e-3: see
              TRAIN_TOL_BY_ARCH); one ``train_step`` on each device's own
              gradients is reported beside them.
+10. dryrun   the multi-pod dry-run (``repro_torch.launch.dryrun``: DTensor
+             over a fake process group, fake tensors, nothing allocated;
+             no kernel runs).  On the host, in two subprocesses started
+             first (one a mesh): qwen3-1.7b train_4k and decode_32k on the
+             16x16 and 2x16x16 meshes, each record ``ok``.  Meanwhile, full-width
+             qwen3-1.7b (bf16, seeded weights) on a one-rank mesh (NCCL,
+             one card): the dry-run of one Adam step at 4 x 1024 and of one
+             decode_step at batch 16 against a 4096-token cache (7.5 GB of
+             KV) on a fake one-rank mesh, then the same steps for real.
+             The dry-run's ``argument_bytes`` must equal the storage the
+             card holds for the state, cache and tokens to the byte, and its
+             ``peak_bytes`` may lie at most 10 % under
+             ``torch.cuda.max_memory_allocated()`` over the real step;
+             no collective is dispatched on one rank.
 
 Then the per-kernel summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -130,6 +144,8 @@ import gc
 import importlib
 import json
 import math
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -2852,12 +2868,176 @@ def phase_train(state, seed: int):
     return out
 
 
+# =============================================================================
+# phase 10: the dry-run, and its accounting held against the card
+# =============================================================================
+
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_TRAIN = (4, 1024)          # the train phase's batch x tokens
+DRYRUN_DECODE = (16, 4096)        # 16 sequences against a 4096-token cache
+PEAK_UNDER = 0.10                 # the estimate may lie this far below
+
+
+def dryrun_host(out_path: str, multi_pod: bool) -> subprocess.Popen:
+    """One production mesh's dry-runs, as a user runs them, in a
+    subprocess on the host's CPU (no card)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--arch", "qwen3-1.7b", "--out", out_path]
+    if multi_pod:
+        cmd.append("--multi-pod")
+    for shape in DRYRUN_SHAPES:
+        cmd += ["--shape", shape]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def storage_bytes(args) -> int:
+    """Bytes of the distinct storages behind the local tensors of
+    ``args`` (DTensors' shards)."""
+    from repro_torch.launch.dryrun import local_tensors
+    seen = {}
+    for t in local_tensors(list(args)):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def card_vs_dryrun(cfg, shape, seed: int) -> dict:
+    """One step of ``shape`` on a one-rank mesh: the dry-run's accounting
+    (fake one-rank mesh, on the host) against the card's real run."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch.dryrun import build_step, dryrun_one
+    from repro_torch.models.sharding import NamedMesh
+    t0 = time.perf_counter()
+    rec = dryrun_one(cfg.name, shape, False, cfg=cfg, mesh_shape=(1, 1))
+    require(rec["status"] == "ok",
+            f"dry-run of {shape.name}: {rec['status']} "
+            f"{rec.get('traceback', '')}")
+    dry_s = time.perf_counter() - t0
+    mem = rec["memory"]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = NamedMesh(init_device_mesh("cuda", (1, 1),
+                                          mesh_dim_names=("data", "model")))
+        step_fn, args = build_step(cfg.name, shape, mesh, cfg,
+                                   device=DEVICE, seed=seed)
+        torch.cuda.synchronize()
+        held = storage_bytes(args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        allocated = torch.cuda.memory_allocated()
+        comm = CommDebugMode()
+        t0 = time.perf_counter()
+        with comm:
+            out = step_fn(*args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+        del out, args, step_fn
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(held == mem["argument_bytes"],
+            f"{shape.name}: the dry-run's argument_bytes "
+            f"{mem['argument_bytes']} against {held} held on the card")
+    require(mem["peak_bytes"] >= (1 - PEAK_UNDER) * peak,
+            f"{shape.name}: the dry-run's peak_bytes {mem['peak_bytes']} "
+            f"lie more than {PEAK_UNDER:.0%} under the card's "
+            f"max_memory_allocated {peak}")
+    require(not any(rec["collectives"].values()) and not counts,
+            f"{shape.name}: collectives on one rank: {rec['collectives']} "
+            f"{counts}")
+    return {"shape": dataclasses.asdict(shape),
+            "argument_bytes": mem["argument_bytes"],
+            "card_storage_bytes": held,
+            "card_allocated_before_step": allocated,
+            "peak_bytes_estimated": mem["peak_bytes"],
+            "card_max_memory_allocated": peak,
+            "peak_ratio": mem["peak_bytes"] / peak,
+            "output_bytes": mem["output_bytes"],
+            "flops": rec["cost"]["flops"],
+            "collectives": rec["collectives"],
+            "card_collective_counts": counts,
+            "dryrun_s": dry_s, "card_step_s": step_s}
+
+
+def phase_dryrun(state, seed: int):
+    import tempfile
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    release_pools()
+    paged_attention.launches = 0
+    ragged_segment_attention.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        # one subprocess a mesh, both started before the card's work
+        paths = [os.path.join(tmp, f"dryrun_{m}.json") for m in (0, 1)]
+        hosts = [dryrun_host(p, bool(m)) for m, p in enumerate(paths)]
+        try:
+            cfg = full_config()
+            card = {
+                "train": card_vs_dryrun(cfg, ShapeConfig(
+                    "card_train", DRYRUN_TRAIN[1], DRYRUN_TRAIN[0], "train"),
+                    seed),
+                "decode": card_vs_dryrun(cfg, ShapeConfig(
+                    "card_decode", DRYRUN_DECODE[1], DRYRUN_DECODE[0],
+                    "decode"), seed)}
+            t0 = time.perf_counter()
+            outs = [h.communicate(timeout=600) for h in hosts]
+            waited = time.perf_counter() - t0
+        finally:
+            for h in hosts:
+                if h.poll() is None:
+                    h.kill()
+                    h.communicate()
+        records = []
+        for h, (stdout, stderr), path in zip(hosts, outs, paths):
+            require(h.returncode == 0,
+                    f"dry-run CLI exit {h.returncode}: {stdout[-1500:]} "
+                    f"{stderr[-1500:]}")
+            with open(path) as f:
+                records += json.load(f)
+    require(len(records) == 2 * len(DRYRUN_SHAPES)
+            and all(r["status"] == "ok" for r in records),
+            "dry-run records: " + str([(r["shape"], r["mesh"], r["status"])
+                                       for r in records]))
+    prod = [{k: r[k] for k in ("arch", "shape", "mesh", "n_devices",
+                               "status", "elapsed_s", "memory", "cost",
+                               "collectives", "layout_notes")}
+            for r in records]
+    # the model-level steps attend through causal / decode attention
+    launches = {"paged_attention": paged_attention.launches,
+                "ragged_segment_attention": ragged_segment_attention.launches}
+    require(not any(launches.values()),
+            f"the dry-run phase launched an attention kernel: {launches}")
+    state["dryrun_launches"] = launches
+    return {"card": state["smi"], "production_meshes": prod,
+            "waited_for_host_s": waited, "one_rank_vs_card": card,
+            "kernel_launches": launches}
+
+
 def kernels_line(state):
     """One row per kernel.  ``launches`` counts the MoE drain's fused
     path (phase 7), and the times, bound and error are at its shape (KV
     16, G 1, hd 128; 16 decode sequences at contexts 256-4096, 4 chunks
     of 512), bf16.  ``launches_by_path`` holds every phase's count, the
-    training phase's 0 included (it runs the model-level attention).
+    training and dry-run phases' 0 included (they run the model-level
+    attention).
     ``by_shape`` holds the qwen3-1.7b shape and the other served head
     shapes."""
     rows = []
@@ -2885,7 +3065,8 @@ def kernels_line(state):
                 "elastic": state["elastic_launches"][name],
                 "moe": state["moe_launches"][name],
                 "families": state["families_launches"][name],
-                "train": state["train_launches"][name]},
+                "train": state["train_launches"][name],
+                "dryrun": state["dryrun_launches"][name]},
             "max_abs_err":
                 state["shape_errs"]["qwen2-moe"][f"{short}_bfloat16_full"],
             "ms": t["kernel_ms"], "plain_ms": t["ref_ms"],
@@ -2944,7 +3125,8 @@ def main(argv=None) -> int:
               ("elastic", lambda: phase_elastic(state, args.seed)),
               ("moe", lambda: phase_moe(state, args.seed)),
               ("families", lambda: phase_families(state, args.seed)),
-              ("train", lambda: phase_train(state, args.seed)))
+              ("train", lambda: phase_train(state, args.seed)),
+              ("dryrun", lambda: phase_dryrun(state, args.seed)))
     for name, run in phases:
         t0 = time.perf_counter()
         try:

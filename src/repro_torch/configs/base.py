@@ -1,4 +1,5 @@
-"""Config system: model architecture configs.
+"""Config system: model architecture configs and the dry-run's input
+shapes.
 
 Every architecture of the JAX package has one
 ``src/repro_torch/configs/<id>.py`` module exporting ``CONFIG``;
@@ -201,6 +202,27 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -230,3 +252,9 @@ def get_config(arch_id: str) -> ModelConfig:
 def all_configs() -> Sequence[ModelConfig]:
     return [get_config(a) for a in ARCH_IDS]
 
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """Whether (arch, shape) is a supported dry-run combination (see DESIGN.md §4)."""
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True

@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import spmd
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
@@ -96,7 +97,10 @@ def init_embedding(generator: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][ids.long()]
+    # an embedding lookup, not an index: DTensor partitions it over a
+    # vocab-sharded table (each rank reads its rows, one reduction) but
+    # would gather the whole table for an index
+    return spmd.reduce_partial(F.embedding(ids.long(), params["embed"]))
 
 
 def lm_logits(params: dict, x: torch.Tensor,
@@ -108,8 +112,8 @@ def lm_logits(params: dict, x: torch.Tensor,
 
 def layer_slice(layers: dict, i: int) -> dict:
     """Layer ``i``'s params: views into the layer-stacked tree."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
+    return {k: layer_slice(v, i) if isinstance(v, dict)
+            else spmd.gather(v, 0)[i] for k, v in layers.items()}
 
 
 def layer_list(layers: dict, n: int) -> list:
@@ -120,7 +124,10 @@ def layer_list(layers: dict, n: int) -> list:
     layer's gradient into a zero tensor the size of the whole stack."""
     out = [{} for _ in range(n)]
     for k, v in layers.items():
-        parts = layer_list(v, n) if isinstance(v, dict) else v.unbind(0)
+        # a stack sharded along its layer dim (the reference's rules can
+        # put an axis there) is gathered first, as GSPMD does per slice
+        parts = (layer_list(v, n) if isinstance(v, dict)
+                 else spmd.gather(v, 0).unbind(0))
         for d, part in zip(out, parts):
             d[k] = part
     return out
@@ -136,12 +143,20 @@ def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     one-hot of the targets, so that GSPMD keeps the vocabulary dim
     sharded; one term of that contraction is nonzero, so the gather gives
     the same number, and it makes no second (..., V) fp32 tensor (2.5 GB
-    at a 151,936-token vocabulary and 4096 tokens)."""
+    at a 151,936-token vocabulary and 4096 tokens).  On vocab-sharded
+    DTensor logits each rank takes its shard's share of the contraction
+    (``spmd.pick_last``)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, targets.long()[..., None],
-                                dim=-1)[..., 0]
-    nll = lse - gold
+    if spmd.is_dtensor(logits):
+        # vocab-parallel, as GSPMD partitions the reference: a max and a
+        # sum over the vocab shards, each a reduction of (...,) values;
+        # DTensor's logsumexp would gather the logits whole
+        m = spmd.reduce_partial(logits.amax(dim=-1)).detach()
+        lse = m + torch.log(spmd.reduce_partial(
+            torch.exp(logits - m[..., None]).sum(dim=-1)))
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - spmd.pick_last(logits, targets.long())
     if mask is not None:
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

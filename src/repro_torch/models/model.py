@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
+from repro_torch.models import spmd, ssm
 from repro_torch.models.layers import (
     embed_tokens,
     init_embedding,
@@ -95,12 +95,17 @@ def _add_aux(total, aux):
     return aux if total is None else total + aux
 
 
-def _run_layer(train: bool, fn, *args):
-    """``fn(*args)``; when ``train`` its activations are recomputed in the
-    backward instead of kept (the reference's ``jax.checkpoint``)."""
+def _run_layer(train: bool, fn, lp: dict, *args):
+    """``fn(lp, *args)`` for one layer's params ``lp``; when ``train`` its
+    activations are recomputed in the backward instead of kept (the
+    reference's ``jax.checkpoint``).  On DTensors ``lp`` is unsharded over
+    the data axes inside (FSDP), so the recompute gathers it again."""
+    def body(lp, *args):
+        return fn(spmd.unshard(lp), *args)
+
     if train:
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(body, lp, *args, use_reentrant=False)
+    return body(lp, *args)
 
 
 # =============================================================================
@@ -114,6 +119,11 @@ class LanguageModel:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
+        # Optional NamedSharding (models/sharding.py) of the (B, S, d)
+        # activations on DTensor runs: pinned at every layer boundary, as
+        # the reference constrains its scan carry, so the batch stays
+        # sharded over the data axes
+        self.act_sharding = None
         kinds = cfg.layer_kinds
         self.uniform_kind = kinds[0] if len(set(kinds)) == 1 else None
         if self.uniform_kind is None:
@@ -131,6 +141,9 @@ class LanguageModel:
             # the ffn pattern repeats with the block (jamba: moe period 2 | 8)
             assert self.ffn_kinds == (self.ffn_kinds[:self.block_period]
                                       * self.n_blocks)
+
+    def _constrain(self, x: torch.Tensor) -> torch.Tensor:
+        return spmd.constrain(x, self.act_sharding)
 
     # -- flags ---------------------------------------------------------------
     def _is_global_flags(self) -> Optional[List[bool]]:
@@ -258,18 +271,18 @@ class LanguageModel:
             o, kv = attn.causal_attention(lp["attn"], h, cfg,
                                           is_global=is_global, return_kv=True)
             kv = torch.stack(kv)
-        x = x + o
+        x = x + self._constrain(o)
         f, aux = ffn_with_aux(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
-        return x + f, aux, kv
+        return x + self._constrain(f), aux, kv
 
     def _attn_layer_decode(self, lp, x, cache_kv, pos, is_global):
         cfg = self.cfg
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         o, new_kv = attn.decode_attention(lp["attn"], h, cache_kv, pos, cfg,
                                           is_global=is_global)
-        x = x + o
-        return x + ffn_block(lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
-                              cfg), new_kv
+        x = x + self._constrain(o)
+        return x + self._constrain(ffn_block(
+            lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)), new_kv
 
     def _rwkv_layer_fwd(self, lp, x, state, s1, s2, decode: bool):
         cfg = self.cfg
@@ -277,10 +290,10 @@ class LanguageModel:
         o, new_state, new_s1 = fn(lp["tmix"],
                                   rms_norm(x, lp["ln1"], cfg.norm_eps),
                                   state, s1, cfg)
-        x = x + o
+        x = x + self._constrain(o)
         o2, new_s2 = ssm.rwkv_channel_mix(
             lp["cmix"], rms_norm(x, lp["ln2"], cfg.norm_eps), s2)
-        return x + o2, new_state, new_s1, new_s2
+        return x + self._constrain(o2), new_state, new_s1, new_s2
 
     def _mamba_layer_fwd(self, lp, x, h_state, conv_state, decode: bool):
         cfg = self.cfg
@@ -288,9 +301,9 @@ class LanguageModel:
         o, new_h, new_conv = fn(lp["mamba"],
                                 rms_norm(x, lp["ln1"], cfg.norm_eps),
                                 h_state, conv_state, cfg)
-        x = x + o
+        x = x + self._constrain(o)
         f, aux = ffn_with_aux(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
-        return x + f, aux, new_h, new_conv
+        return x + self._constrain(f), aux, new_h, new_conv
 
     def _jamba_block_fwd(self, blk, x, h0, c0, train=False):
         """One super-block: -> (x, summed MoE aux or None, its attention
@@ -318,7 +331,7 @@ class LanguageModel:
         cache of the whole sequence).  With ``train`` no cache is built
         (None), and each layer, each Jamba super-block, is checkpointed."""
         cfg = self.cfg
-        x = embed_tokens(params, tokens).to(self.dtype)
+        x = self._constrain(embed_tokens(params, tokens).to(self.dtype))
         b, s = tokens.shape
         dev = x.device
         aux = None
@@ -328,21 +341,25 @@ class LanguageModel:
         if self.uniform_kind == "attn":
             kvs = []
             for lp, flag in zip(lps, self._layer_flags()):
-                x, a, kv = _run_layer(train, self._attn_layer_fwd, lp, x,
-                                      flag, train)
+                x, a, kv = _run_layer(train, self._attn_layer_fwd, lp,
+                                      self._constrain(x), flag, train)
                 aux = _add_aux(aux, a)
                 kvs.append(kv)
             if not train:
                 cache["kv"] = torch.stack(kvs)
         elif self.uniform_kind == "rwkv":
             h = cfg.d_model // cfg.rwkv_head_dim
-            st0 = torch.zeros(b, h, cfg.rwkv_head_dim, cfg.rwkv_head_dim,
-                              dtype=torch.float32, device=dev)
-            sh0 = torch.zeros(b, cfg.d_model, dtype=self.dtype, device=dev)
+            st0 = spmd.lift(torch.zeros(b, h, cfg.rwkv_head_dim,
+                                        cfg.rwkv_head_dim,
+                                        dtype=torch.float32, device=dev),
+                            x, dims=(0,))
+            sh0 = spmd.lift(torch.zeros(b, cfg.d_model, dtype=self.dtype,
+                                        device=dev), x, dims=(0,))
             sts, sh1s, sh2s = [], [], []
             for lp in lps:
                 x, st, sh1, sh2 = _run_layer(
-                    train, self._rwkv_layer_fwd, lp, x, st0, sh0, sh0, False)
+                    train, self._rwkv_layer_fwd, lp, self._constrain(x), st0,
+                    sh0, sh0, False)
                 sts.append(st)
                 sh1s.append(sh1.to(self.dtype))
                 sh2s.append(sh2.to(self.dtype))
@@ -352,14 +369,17 @@ class LanguageModel:
                              rwkv_shift2=torch.stack(sh2s))
         else:  # jamba blocks
             di = cfg.ssm_expand * cfg.d_model
-            h0 = torch.zeros(b, di, cfg.ssm_state_dim, dtype=torch.float32,
-                             device=dev)
-            c0 = torch.zeros(b, cfg.ssm_conv_dim - 1, di, dtype=self.dtype,
-                             device=dev)
+            h0 = spmd.lift(torch.zeros(b, di, cfg.ssm_state_dim,
+                                       dtype=torch.float32, device=dev),
+                           x, dims=(0,))
+            c0 = spmd.lift(torch.zeros(b, cfg.ssm_conv_dim - 1, di,
+                                       dtype=self.dtype, device=dev),
+                           x, dims=(0,))
             kvs, hs, convs = [], [], []
             for blk in lps:
                 x, a, bkv, bh, bc = _run_layer(
-                    train, self._jamba_block_fwd, blk, x, h0, c0, train)
+                    train, self._jamba_block_fwd, blk, self._constrain(x), h0,
+                    c0, train)
                 aux = _add_aux(aux, a)
                 kvs += bkv
                 hs += bh
@@ -406,15 +426,16 @@ class LanguageModel:
             kvs = []
             for i, flag in enumerate(self._layer_flags()):
                 x, kv = self._attn_layer_decode(
-                    layer_slice(params["layers"], i), x, cache["kv"][i], pos,
-                    flag)
+                    spmd.unshard(layer_slice(params["layers"], i)),
+                    self._constrain(x), cache["kv"][i], pos, flag)
                 kvs.append(kv)
             new["kv"] = torch.stack(kvs)
         elif self.uniform_kind == "rwkv":
             sts, s1s, s2s = [], [], []
             for i in range(cfg.num_layers):
                 x, st, s1, s2 = self._rwkv_layer_fwd(
-                    layer_slice(params["layers"], i), x,
+                    spmd.unshard(layer_slice(params["layers"], i)),
+                    self._constrain(x),
                     cache["rwkv_state"][i], cache["rwkv_shift1"][i],
                     cache["rwkv_shift2"][i], True)
                 sts.append(st)
@@ -427,7 +448,8 @@ class LanguageModel:
             kvs, hs, convs = [], [], []
             i_a = i_m = 0
             for j in range(self.n_blocks):
-                blk = layer_slice(params["layers"], j)
+                blk = spmd.unshard(layer_slice(params["layers"], j))
+                x = self._constrain(x)
                 for kind, _, lp in self._block_layers(blk):
                     if kind == "attn":
                         x, kv = self._attn_layer_decode(
@@ -460,6 +482,10 @@ class EncDecModel:
         assert cfg.is_encdec
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
+        self.act_sharding = None   # as LanguageModel's
+
+    def _constrain(self, x: torch.Tensor) -> torch.Tensor:
+        return spmd.constrain(x, self.act_sharding)
 
     def init_params(self, generator: torch.Generator,
                     device: Optional[torch.device] = None) -> dict:
@@ -487,16 +513,20 @@ class EncDecModel:
         cfg = self.cfg
         x = frames.to(self.dtype)
         for lp in layer_list(params["encoder"], cfg.num_encoder_layers):
+            lp = spmd.unshard(lp)
+            x = self._constrain(x)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            x = x + attn.causal_attention(lp["attn"], h, cfg, causal=False)
+            x = x + self._constrain(
+                attn.causal_attention(lp["attn"], h, cfg, causal=False))
             h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + swiglu(h2, **lp["ffn"])
+            x = x + self._constrain(swiglu(h2, **lp["ffn"]))
         return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
     def _memory_kv(self, params: dict, memory: torch.Tensor) -> torch.Tensor:
         """(L, 2, B, S_enc, KV, hd): every decoder layer's cross K/V."""
         return torch.stack([
-            torch.stack(attn.project_memory_kv(lp["xattn"], memory, self.cfg))
+            torch.stack(attn.project_memory_kv(spmd.unshard(lp["xattn"]),
+                                               memory, self.cfg))
             for lp in layer_list(params["decoder"], self.cfg.num_layers)])
 
     def _decoder_layer(self, lp, x, mem_kv, cache_kv=None, pos=None,
@@ -513,12 +543,12 @@ class EncDecModel:
         else:
             o, kv = attn.causal_attention(lp["attn"], h, cfg, return_kv=True)
             new_kv = torch.stack(kv)
-        x = x + o
+        x = x + self._constrain(o)
         hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-        x = x + attn.cross_attention(lp["xattn"], hx, (mem_kv[0], mem_kv[1]),
-                                     cfg)
+        x = x + self._constrain(attn.cross_attention(
+            lp["xattn"], hx, (mem_kv[0], mem_kv[1]), cfg))
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + swiglu(h2, **lp["ffn"]), new_kv
+        return x + self._constrain(swiglu(h2, **lp["ffn"])), new_kv
 
     def loss(self, params: dict, batch: dict):
         """batch {"frames" (B, S_enc, d), "tokens", "labels"[, "mask"]} ->
@@ -530,8 +560,8 @@ class EncDecModel:
         x = embed_tokens(params, batch["tokens"]).to(self.dtype)
         for lp, mkv in zip(layer_list(params["decoder"], cfg.num_layers),
                            mkvs):
-            x, _ = _run_layer(True, self._decoder_layer, lp, x, mkv, None,
-                              None, True)
+            x, _ = _run_layer(True, self._decoder_layer, lp,
+                              self._constrain(x), mkv, None, None, True)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         ce = softmax_cross_entropy(lm_logits(params, x, cfg), batch["labels"],
                                    batch.get("mask"))
@@ -563,7 +593,8 @@ class EncDecModel:
         kvs = []
         for lp, mkv in zip(layer_list(params["decoder"], cfg.num_layers),
                            mkvs):
-            x, kv = self._decoder_layer(lp, x, mkv)
+            x, kv = self._decoder_layer(spmd.unshard(lp), self._constrain(x),
+                                        mkv)
             kvs.append(kv)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         cache = {"pos": tokens.shape[1], "kv": torch.stack(kvs),
@@ -577,7 +608,8 @@ class EncDecModel:
         x = embed_tokens(params, tokens).to(self.dtype)
         kvs = []
         for i in range(cfg.num_layers):
-            x, kv = self._decoder_layer(layer_slice(params["decoder"], i), x,
+            x, kv = self._decoder_layer(
+                spmd.unshard(layer_slice(params["decoder"], i)), x,
                                         cache["memory_kv"][i],
                                         cache["kv"][i], pos)
             kvs.append(kv)

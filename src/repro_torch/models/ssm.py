@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import spmd
 from repro_torch.models.layers import dense_init, rms_norm
 
 # ---------------------------------------------------------------------------
@@ -88,8 +89,13 @@ def _rwkv_projections(p: dict, x: torch.Tensor, shift: torch.Tensor,
     w_log = -_softplus(((wx @ p["w_lora_a"]) @ p["w_lora_b"]).float()
                        + p["w_bias"])                    # (B,S,d) <= 0
     shape = (b, s, h, hd)
-    return (r.reshape(shape).float(), k.reshape(shape).float(),
-            v.reshape(shape).float(), g, w_log.reshape(shape), x[:, -1])
+
+    def heads(t):
+        # on DTensors, gathered first where the model axis cuts heads
+        return spmd.gather(t, -1, unless_divides=h).reshape(shape)
+
+    return (heads(r).float(), heads(k).float(), heads(v).float(), g,
+            heads(w_log), x[:, -1])
 
 
 def _rwkv_chunk(r, k, v, w_log, u, state):
@@ -105,7 +111,8 @@ def _rwkv_chunk(r, k, v, w_log, u, state):
     # intra-chunk strict-lower scores with per-dim relative decay
     dlog = b_ex[:, :, None] - a[:, None, :]   # (B,Ct,Cj,H,hd); <=0 for j<t
     ar = torch.arange(c, device=r.device)
-    mask = (ar[:, None] > ar[None, :])[None, :, :, None, None]
+    mask = spmd.lift((ar[:, None] > ar[None, :])[None, :, :, None, None],
+                     dlog)
     dec = torch.where(mask, torch.exp(torch.clamp(dlog, max=0.0)), 0.0)
     scores = torch.einsum("bthd,bjhd,btjhd->bhtj", r, k, dec)
     o_intra = torch.einsum("bhtj,bjhe->bthe", scores, v)
@@ -140,7 +147,9 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, state: torch.Tensor,
         outs.append(o)
     o = torch.cat(outs, dim=1)[:, :s]
     o = rms_norm(o, p["ln_x"].reshape(h, hd), cfg.norm_eps)  # per-head group norm
-    o = (o.reshape(b, s, d) * g).to(x.dtype)
+    # on DTensors the heads' gradient must come back whole to be split
+    # into heads again: pinned, as the forward has it
+    o = (spmd.pin(o.reshape(b, s, d)) * g).to(x.dtype)
     return o @ p["wo"], state, new_shift
 
 
@@ -219,7 +228,7 @@ def _mamba_conv(p: dict, x: torch.Tensor, conv_state: torch.Tensor):
     kk = p["conv_w"].shape[0]
     s = x.shape[1]
     xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    out = torch.zeros_like(x, dtype=torch.float32)
     for j in range(kk):
         out = out + xp[:, j:j + s].float() * p["conv_w"][j].float()
     out = out + p["conv_b"]
@@ -231,7 +240,9 @@ def _mamba_scan_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig):
     """xc (B,S,di) post-conv+silu -> dt (B,S,di) fp32, B/C (B,S,N) fp32."""
     n = cfg.ssm_state_dim
     rank = p["dt_proj"].shape[0]
-    proj = xc @ p["x_proj"]
+    # on DTensors x_proj is row-parallel: its partial sums are reduced
+    # here, before the softplus and the scan read them
+    proj = spmd.reduce_partial(xc @ p["x_proj"])
     dt_r, bm, cm = torch.split(proj, [rank, n, n], dim=-1)
     dt = _softplus((dt_r @ p["dt_proj"]).float() + p["dt_bias"])
     return dt, bm.float(), cm.float()
@@ -240,7 +251,9 @@ def _mamba_scan_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig):
 def _mamba_in(p: dict, x: torch.Tensor, conv_state: torch.Tensor,
               cfg: ModelConfig):
     """Input projection, causal conv and silu, and the scan inputs."""
-    x_in, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    # on DTensors each half is sharded over the model axis as the whole
+    # was, as the rest of the block's weights expect
+    x_in, z = spmd.chunk(x @ p["in_proj"], 2, dim=-1)
     xc_raw, new_conv = _mamba_conv(p, x_in, conv_state)
     xc = F.silu(xc_raw.float()).to(x.dtype)
     dt, bm, cm = _mamba_scan_inputs(p, xc, cfg)
@@ -273,7 +286,7 @@ def mamba_forward(p: dict, x: torch.Tensor, h_state: torch.Tensor,
         for t in range(a.shape[1]):
             h = a[:, t] * h + bx[:, t]
             hs.append(h)
-        ys.append(torch.einsum("bcdn,bcn->bcd", torch.stack(hs, dim=1), cc))
+        ys.append(spmd.einsum("bcdn,bcn->bcd", torch.stack(hs, dim=1), cc))
     y = torch.cat(ys, dim=1)
     return _mamba_out(p, y, xc, z, x.dtype), h, new_conv
 

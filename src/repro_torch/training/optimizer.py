@@ -21,6 +21,7 @@ from typing import Callable
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import spmd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,8 +141,13 @@ def adafactor_update(cfg: AdafactorConfig, params: dict, grads: dict,
         if p.dim() >= 2:
             vr2 = beta * vr + (1 - beta) * g2.mean(dim=-1)
             vc2 = beta * vc + (1 - beta) * g2.mean(dim=-2)
-            denom = torch.clamp(vr2.mean(dim=-1, keepdim=True), min=cfg.eps)
-            vhat = vr2[..., :, None] * vc2[..., None, :] / denom[..., None]
+            # on DTensors the factors take g's layout before their outer
+            # product, which is as large as g
+            lead = tuple(range(g.ndim - 2))
+            vr_g = spmd.follow(vr2, g, (*lead, g.ndim - 2))
+            vc_g = spmd.follow(vc2, g, (*lead, g.ndim - 1))
+            denom = torch.clamp(vr_g.mean(dim=-1, keepdim=True), min=cfg.eps)
+            vhat = vr_g[..., :, None] * vc_g[..., None, :] / denom[..., None]
         else:
             vr2, vc2 = vr, beta * vc + (1 - beta) * g2
             vhat = vc2

@@ -216,7 +216,9 @@ def test_loss_is_a_finite_scalar(models):
 
 
 def test_port_imports_no_jax():
-    """Importing the whole port leaves jax out of sys.modules."""
+    """Importing the whole port leaves jax out of sys.modules; importing
+    the dry-run and mesh modules changes no environment variable and
+    starts no process group."""
     code = ("import sys\n"
             "import repro_torch, repro_torch.serving, repro_torch.models, "
             "repro_torch.kernels, repro_torch.configs, repro_torch.obs, "
@@ -245,6 +247,14 @@ def test_port_imports_no_jax():
             "repro_torch.configs.gemma3_27b, repro_torch.configs.rwkv6_3b, "
             "repro_torch.configs.jamba_v0_1_52b, "
             "repro_torch.configs.seamless_m4t_large_v2\n"
+            "import os\n"
+            "env = dict(os.environ)\n"
+            "import repro_torch.launch, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun, repro_torch.models.sharding, "
+            "repro_torch.models.spmd\n"
+            "assert dict(os.environ) == env, 'the environment changed'\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_available() or not dist.is_initialized()\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'\n")
