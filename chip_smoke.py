@@ -12,9 +12,10 @@ fails prints its error and the script exits non-zero.
              nvcc for sm_90a; print the card's name and power limit.
 2. kernels   each kernel against its plain version on the card: the sweeps
              of tests/test_kernels.py, a head dim of 112, the full-width
-             qwen3-1.7b shapes and the served families' head shapes (KV 16
-             G 1 hd 128, KV 32 G 1 hd 80, KV 8 G 3 hd 128, each also timed
-             at full width), in float32 (tolerance 2e-5) and bfloat16
+             qwen3-1.7b shapes, the served families' head shapes (KV 16
+             G 1 hd 128, KV 32 G 1 hd 80, KV 8 G 3 hd 128) and the
+             tensor_parallel phase's local ones (KV 4 and 2, G 2, hd 128),
+             each also timed at full width, in float32 (tolerance 2e-5) and bfloat16
              (2e-2); contexts at, one past and short of the decode kernel's
              split boundaries; prefill chunks whose length is no multiple of
              the row tile and whose offsets are no multiple of the key tile;
@@ -130,6 +131,24 @@ fails prints its error and the script exits non-zero.
              ``peak_bytes`` may lie at most 10 % under
              ``torch.cuda.max_memory_allocated()`` over the real step;
              no collective is dispatched on one rank.
+11. tensor_parallel
+             tensor-parallel serving (``repro_torch.serving.
+             tensor_parallel``): 2, then 4 processes of this script on the
+             one card in a gloo group (NCCL refuses two ranks on one
+             device; gloo's all-reduces of CUDA tensors go through host
+             memory), one slice of every rank.  Each rank shards
+             full-width qwen3-1.7b (bf16, the drain phase's weights; KV
+             heads 4 or 2 a rank, both kernels at those shapes) and rank 0
+             drains the drain phase's 16 requests through ``LLMEngine``
+             while the others serve; every rank's launch counters are
+             zeroed just before and read just after.  Reports iterations,
+             TPOT, the all-reduces' share of the wall time (CUDA events
+             around each), per-rank peak memory and how many bf16 streams
+             left the drain phase's; every shard's pool address must stay
+             put.  Then float32 at 4 layers: the streams held to the
+             identity phase's CUDA run under its margin rule.
+             qwen2-moe-a2.7b at tp 2 must be refused.  A process that
+             fails or outlives its deadline fails the phase.
 
 Then the per-kernel summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -207,6 +226,9 @@ EDGE_RAGGED = ([(100, 37), (65, 0), (1, 63), (130, 64)], 8, 2, 128, 16, 13,
 # tiles) in both dtypes and timed in bf16 at the full-width sizes above
 HEAD_SHAPES = {"qwen2-moe": (16, 1, 128), "stablelm": (32, 1, 80),
                "llama3.2": (8, 3, 128)}
+# the tensor_parallel phase's local head shapes: qwen3-1.7b's 8 KV heads
+# over 2 and 4 shards
+TP_HEAD_SHAPES = {"qwen3-tp2": (4, 2, 128), "qwen3-tp4": (2, 2, 128)}
 HEAD_PAGED = (3, 16, 40, 128)               # b, bs, nb, n_pool
 HEAD_RAGGED = ([(130, 37), (65, 0), (1, 300)], 16, 24, 96)
 
@@ -455,6 +477,7 @@ def phase_kernels(state, seed: int):
     # the served head shapes draw from a generator of their own, so the
     # shapes timed above keep the inputs of earlier runs
     served_rng = np.random.default_rng(seed + 2)
+    tp_rng = np.random.default_rng(seed + 3)
     errs = {"paged_attention": {}, "ragged_segment_attention": {}}
     checks = 0
     for name, tdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -568,6 +591,8 @@ def phase_kernels(state, seed: int):
                 "ragged_segment_attention": time_ragged(rfull),
             }
         checks += served_head_shapes(state, served_rng, name, tdt, tol)
+        checks += served_head_shapes(state, tp_rng, name, tdt, tol,
+                                     TP_HEAD_SHAPES)
     torch.cuda.synchronize()
     state["errs"] = errs
     return {"checks": checks, "max_abs_err": errs,
@@ -576,8 +601,9 @@ def phase_kernels(state, seed: int):
                                        **state["shape_timing"]}}
 
 
-def served_head_shapes(state, rng, name: str, tdt, tol: float) -> int:
-    """Both kernels against their plain versions at each of HEAD_SHAPES,
+def served_head_shapes(state, rng, name: str, tdt, tol: float,
+                       shapes=HEAD_SHAPES) -> int:
+    """Both kernels against their plain versions at each of ``shapes``,
     with poison past every bound; in bf16 each is also timed at the
     full-width sizes.  Returns the number of checks."""
     import torch
@@ -587,7 +613,7 @@ def served_head_shapes(state, rng, name: str, tdt, tol: float) -> int:
     errs = state.setdefault("shape_errs", {})
     timing = state.setdefault("shape_timing", {})
     nan = float("nan")
-    for label, (kv, g, hd) in HEAD_SHAPES.items():
+    for label, (kv, g, hd) in shapes.items():
         b, bs, nb, n_pool = HEAD_PAGED
         args = on_card(paged_case(rng, b, kv, g, hd, bs, nb, n_pool), tdt)
         out = paged_attention(*args)
@@ -624,8 +650,7 @@ def served_head_shapes(state, rng, name: str, tdt, tol: float) -> int:
             timing[label] = {"paged_attention": time_paged(full),
                              "ragged_segment_attention": time_ragged(rfull)}
             del full, rfull
-    return 4 * len(HEAD_SHAPES) + (2 * len(HEAD_SHAPES)
-                                   if name == "bfloat16" else 0)
+    return 4 * len(shapes) + (2 * len(shapes) if name == "bfloat16" else 0)
 
 
 def time_paged(args):
@@ -848,6 +873,8 @@ def phase_drain(state, seed: int):
         require(len(r.output_tokens) == 32 and all(
             0 <= int(t) < cfg.vocab_size for t in r.output_tokens),
             f"{r.msg_id}: bad output {r.output_tokens[:4]}...")
+    # the tensor_parallel phase's tp 1 streams
+    state["drain_streams"] = streams_of(done)
     ttft = [r.first_token_time - r.arrival_time for r in done]
     tpot = [(r.finish_time - r.first_token_time) / (r.output_len - 1)
             for r in done]
@@ -1016,6 +1043,8 @@ def phase_identity(state, seed: int):
         torch.cuda.empty_cache()
 
     cuda_streams, _, cuda_done = runs["cuda"]
+    # the tensor_parallel phase's float32 tp 1 streams and margins
+    state["fp32_tp1"] = runs["cuda"][:2]
     ref_streams, ref_margins, _ = runs["ref"]
     require(all(len(v) == 32 for v in ref_streams.values()),
             "stream lengths")
@@ -3031,13 +3060,249 @@ def phase_dryrun(state, seed: int):
             "kernel_launches": launches}
 
 
+# =============================================================================
+# phase 11: tensor-parallel serving, driver and follower processes
+# =============================================================================
+
+TP_DEGREES = (2, 4)
+TP_DEADLINE_S = 240          # per spawn, for all its processes together
+TP_COLLECTIVE_TIMEOUT_S = 120
+TP_FP32_LAYERS = 4
+
+
+class ReduceClock:
+    """Wraps a runner's all-reduce: CUDA events before and after each
+    call, so their sum is the time the card's stream spends in the
+    all-reduces (host staging included)."""
+
+    def __init__(self, runner):
+        self.runner, self.orig = runner, runner._reduce
+        self.pairs = []
+        runner._reduce = self
+
+    def __call__(self, t):
+        import torch
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.orig(t)
+        b.record()
+        self.pairs.append((a, b))
+        return out
+
+    def seconds(self) -> float:
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs) * 1e-3
+
+
+def tp_serve(mesh, model, params, seed: int, bf16: bool) -> dict:
+    """One tensor-parallel runner on ``mesh`` at the drain phase's
+    settings: the driver drains the drain phase's 16 requests, a follower
+    serves.  The kernels' launch counters are zeroed just before and read
+    just after, on every rank."""
+    import torch
+    from repro_torch import serving
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    runner = serving.PagedModelRunner(model, params, num_blocks=4096,
+                                      block_size=16, max_batch=16, mesh=mesh)
+    require(runner.backend == "cuda" and runner.ragged_backend == "cuda",
+            "the sharded runner must default to the CUDA kernels")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock = ReduceClock(runner)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    ragged_segment_attention.launches = 0
+    out = {"local_heads": {"KV": runner._lcfg.num_kv_heads,
+                           "G": runner._lcfg.num_heads
+                           // runner._lcfg.num_kv_heads,
+                           "hd": runner._lcfg.resolved_head_dim}}
+    if mesh.is_driver:
+        waves = make_requests(serving, seed, model.cfg.vocab_size)
+        eng = engine_for(runner)
+        done, iters, addrs, wall, steps = drain(eng, waves)
+        runner.shutdown()
+        require(len(done) == 16, f"{len(done)} of 16 requests finished")
+        out.update(streams=streams_of(done), iterations=iters, wall_s=wall,
+                   pool_addresses=sorted(addrs),
+                   pool_bytes=eng.metrics_snapshot()["pool_bytes"],
+                   n_preempted=eng.stats.n_preempted)
+        if bf16:
+            tpot = [(r.finish_time - r.first_token_time) / (r.output_len - 1)
+                    for r in done]
+            ttft = [r.first_token_time - r.arrival_time for r in done]
+            out.update(
+                tpot_median_s=statistics.median(tpot),
+                ttft_median_s=statistics.median(ttft),
+                iteration_s_median_with_prefill=statistics.median(
+                    t for p, t in steps if p),
+                iteration_s_median_decode_only=statistics.median(
+                    t for p, t in steps if not p))
+    else:
+        serving.serve_follower(runner)
+    torch.cuda.synchronize()
+    out.update(
+        launches={"paged_attention": paged_attention.launches,
+                  "ragged_segment_attention":
+                      ragged_segment_attention.launches},
+        all_reduces=len(clock.pairs), all_reduce_s=clock.seconds(),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del runner, clock
+    release_pools()
+    return out
+
+
+def tp_worker(rank: int, world: int, tmp: str, seed: int) -> None:
+    """One process of a ``world``-rank group on the card: a gloo group
+    through a file store in ``tmp`` (NCCL refuses two ranks on one card),
+    one tensor-parallel slice of every rank; rank 0 drives.  Each rank
+    writes what it measured to ``tmp``."""
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.serving import make_serving_slices
+    torch.cuda.set_device(resolve_device(None, rank))
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(tmp, 'store')}",
+        rank=rank, world_size=world,
+        timeout=timedelta(seconds=TP_COLLECTIVE_TIMEOUT_S))
+    try:
+        (mesh,) = make_serving_slices(1, world)
+        cfg = full_config()
+        out = {"bf16": tp_serve(mesh, *served(cfg, seed), seed, True)}
+        cfg32 = dataclasses.replace(cfg, num_layers=TP_FP32_LAYERS,
+                                    dtype="float32")
+        out["fp32"] = tp_serve(mesh, *served(cfg32, seed), seed, False)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_spawn(world: int, seed: int) -> list:
+    """Run ``tp_worker`` in ``world`` processes; each rank's results.  A
+    process that fails or outlives the deadline fails the phase."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1")
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+             str(seed), "--tp-worker", str(r), str(world), tmp],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(world)]
+        deadline = time.monotonic() + TP_DEADLINE_S
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic())))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0,
+                    f"tp {world}: rank {r} exit {p.returncode}: "
+                    f"{err[-2500:]}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks
+
+
+def phase_tensor_parallel(state, seed: int):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingCluster
+    release_pools()
+    # the reference refuses MoE at tp > 1 before anything is placed
+    try:
+        ServingCluster.on_mesh_slices(
+            build_model(get_config("qwen2-moe-a2.7b")), None, None,
+            n_instances=1, model_parallel=2, ranks=[0, 1])
+        moe_error = None
+    except ValueError as e:
+        moe_error = str(e)
+    require(moe_error is not None and "MoE" in moe_error,
+            f"qwen2-moe-a2.7b at tp 2: {moe_error}")
+    fp32_want, fp32_margins = state["fp32_tp1"]
+    cfg = full_config()
+    total = {"paged_attention": 0, "ragged_segment_attention": 0}
+    out = {"card": state["smi"], "moe_tp2_error": moe_error,
+           "backend": "gloo (NCCL refuses two ranks on one card): every "
+                      "all-reduce of a CUDA tensor goes through host memory"}
+    for world in TP_DEGREES:
+        t0 = time.perf_counter()
+        ranks = tp_spawn(world, seed)
+        spawn_s = time.perf_counter() - t0
+        bf, f32 = ranks[0]["bf16"], ranks[0]["fp32"]
+        for part in ("bf16", "fp32"):
+            for r, res in enumerate(ranks):
+                launches = res[part]["launches"]
+                require(min(launches.values()) > 0,
+                        f"tp {world} {part} rank {r}: a kernel never "
+                        f"launched: {launches}")
+                require(res[part]["local_heads"] == {
+                    "KV": cfg.num_kv_heads // world,
+                    "G": cfg.num_heads // cfg.num_kv_heads,
+                    "hd": cfg.resolved_head_dim},
+                    f"tp {world} rank {r}: local heads "
+                    f"{res[part]['local_heads']}")
+                for k, v in launches.items():
+                    total[k] += v
+            addrs = ranks[0][part]["pool_addresses"]
+            require(len(addrs) == 1 and len(addrs[0]) == world,
+                    f"tp {world} {part}: the pool moved or lost a shard: "
+                    f"{addrs}")
+        agreement = margin_rule(f32["streams"], fp32_want, fp32_margins,
+                                f"tp {world} float32")
+        require(agreement["identical_streams"] + agreement[
+            "near_tie_divergences"] == len(fp32_want), "stream count")
+        out[f"tp{world}"] = {
+            "processes": world, "spawn_s": spawn_s,
+            "bf16_full_width": {
+                **{k: bf[k] for k in (
+                    "iterations", "wall_s", "tpot_median_s", "ttft_median_s",
+                    "iteration_s_median_with_prefill",
+                    "iteration_s_median_decode_only", "pool_bytes",
+                    "n_preempted", "all_reduces", "all_reduce_s",
+                    "local_heads")},
+                "all_reduce_share_of_wall": bf["all_reduce_s"] / bf["wall_s"],
+                "all_reduces_per_iteration":
+                    bf["all_reduces"] / bf["iterations"],
+                "pool_address_stable": True,
+                "streams_diverged_from_tp1": divergences(
+                    bf["streams"], state["drain_streams"]),
+                "peak_memory_gb_by_rank": [
+                    r["bf16"]["peak_memory_gb"] for r in ranks],
+                "all_reduce_s_by_rank": [
+                    r["bf16"]["all_reduce_s"] for r in ranks],
+                "launches_by_rank": [r["bf16"]["launches"] for r in ranks]},
+            "fp32_layers": TP_FP32_LAYERS,
+            "fp32_vs_tp1": {**agreement,
+                            "n_preempted": f32["n_preempted"],
+                            "launches_by_rank": [
+                                r["fp32"]["launches"] for r in ranks]}}
+    state["tp_launches"] = total
+    out["kernel_launches"] = total
+    return out
+
+
 def kernels_line(state):
     """One row per kernel.  ``launches`` counts the MoE drain's fused
     path (phase 7), and the times, bound and error are at its shape (KV
     16, G 1, hd 128; 16 decode sequences at contexts 256-4096, 4 chunks
     of 512), bf16.  ``launches_by_path`` holds every phase's count, the
     training and dry-run phases' 0 included (they run the model-level
-    attention).
+    attention), and the tensor-parallel phase's, summed over its ranks.
     ``by_shape`` holds the qwen3-1.7b shape and the other served head
     shapes."""
     rows = []
@@ -3066,7 +3331,8 @@ def kernels_line(state):
                 "moe": state["moe_launches"][name],
                 "families": state["families_launches"][name],
                 "train": state["train_launches"][name],
-                "dryrun": state["dryrun_launches"][name]},
+                "dryrun": state["dryrun_launches"][name],
+                "tensor_parallel": state["tp_launches"][name]},
             "max_abs_err":
                 state["shape_errs"]["qwen2-moe"][f"{short}_bfloat16_full"],
             "ms": t["kernel_ms"], "plain_ms": t["ref_ms"],
@@ -3095,6 +3361,8 @@ def kernels_line(state):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one process of the tensor_parallel phase: RANK WORLD DIR
+    ap.add_argument("--tp-worker", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3115,6 +3383,10 @@ def main(argv=None) -> int:
     # float32 is held to the plain versions at float32 precision
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.tp_worker:
+        rank, world, tmp = args.tp_worker
+        tp_worker(int(rank), int(world), tmp, args.seed)
+        return 0
 
     state = {}
     phases = (("build", lambda: phase_build(state)),
@@ -3126,7 +3398,9 @@ def main(argv=None) -> int:
               ("moe", lambda: phase_moe(state, args.seed)),
               ("families", lambda: phase_families(state, args.seed)),
               ("train", lambda: phase_train(state, args.seed)),
-              ("dryrun", lambda: phase_dryrun(state, args.seed)))
+              ("dryrun", lambda: phase_dryrun(state, args.seed)),
+              ("tensor_parallel",
+               lambda: phase_tensor_parallel(state, args.seed)))
     for name, run in phases:
         t0 = time.perf_counter()
         try:

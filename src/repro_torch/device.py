@@ -11,9 +11,11 @@ import torch
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, rank=None) -> torch.device:
     """``None`` -> the CUDA card (raises without one); else as given, with
-    a bare ``"cuda"`` pinned to the current card's index.
+    a bare ``"cuda"`` pinned to the current card's index.  Given the
+    process's ``rank`` (a tensor-parallel shard), ``None`` and a bare
+    ``"cuda"`` mean card ``rank % device_count``.
 
     On a CUDA device this also turns TF32 off for float32 matrix products
     and convolutions: the port's float32 runs are held to the reference
@@ -28,7 +30,9 @@ def resolve_device(device=None) -> torch.device:
         if device.index is None:
             # "cuda" names the current card; tensors made there report
             # "cuda:<index>", and the two compare unequal
-            device = torch.device("cuda", torch.cuda.current_device())
+            device = torch.device("cuda", torch.cuda.current_device()
+                                  if rank is None
+                                  else rank % torch.cuda.device_count())
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device

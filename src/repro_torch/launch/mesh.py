@@ -9,8 +9,8 @@ sharding rules read through ``shape`` and ``axis_names``.
 The serving topology uses rank-level meshes: :func:`make_local_mesh` for
 one tensor-parallel instance, :func:`make_slice_meshes` to carve the
 ranks into disjoint same-size slices (data-parallel instances x
-tensor-parallel shards).  Every argument is validated before a mesh is
-built.
+tensor-parallel shards); :func:`slice_ranks` gives the same carving
+without a mesh.  Every argument is validated before a mesh is built.
 """
 from __future__ import annotations
 
@@ -63,12 +63,12 @@ def make_local_mesh(model_parallel: int = 1,
                                 mesh_dim_names=("data", "model")))
 
 
-def make_slice_meshes(n_slices: int, model_parallel: int = 1,
-                      ranks: Optional[Sequence[int]] = None
-                      ) -> List[NamedMesh]:
-    """Disjoint ("data", "model") sub-meshes for data-parallel serving:
-    ``n_slices`` consecutive groups of ``model_parallel`` ranks, one
-    tensor-parallel instance per slice, no rank shared between slices."""
+def slice_ranks(n_slices: int, model_parallel: int = 1,
+                ranks: Optional[Sequence[int]] = None) -> List[List[int]]:
+    """The rank lists :func:`make_slice_meshes` builds its meshes over:
+    ``n_slices`` consecutive groups of ``model_parallel`` ranks, validated
+    as it validates them, with no mesh and no process group made (the
+    tensor-parallel serving slices make their own groups)."""
     ranks = list(ranks) if ranks is not None else _world_ranks()
     if n_slices < 1:
         raise ValueError(f"n_slices must be >= 1, got {n_slices}")
@@ -77,6 +77,18 @@ def make_slice_meshes(n_slices: int, model_parallel: int = 1,
         raise ValueError(
             f"{n_slices} slice(s) x {model_parallel}-way model parallel "
             f"needs {need} devices; only {len(ranks)} available")
-    return [make_local_mesh(model_parallel,
-                            ranks[i * model_parallel:(i + 1) * model_parallel])
+    if model_parallel < 1:
+        raise ValueError(
+            f"model_parallel must be >= 1, got {model_parallel}")
+    return [ranks[i * model_parallel:(i + 1) * model_parallel]
             for i in range(n_slices)]
+
+
+def make_slice_meshes(n_slices: int, model_parallel: int = 1,
+                      ranks: Optional[Sequence[int]] = None
+                      ) -> List[NamedMesh]:
+    """Disjoint ("data", "model") sub-meshes for data-parallel serving:
+    ``n_slices`` consecutive groups of ``model_parallel`` ranks, one
+    tensor-parallel instance per slice, no rank shared between slices."""
+    return [make_local_mesh(model_parallel, r)
+            for r in slice_ranks(n_slices, model_parallel, ranks)]

@@ -32,11 +32,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN: silu taken in fp32 and cast back before ``* up``."""
+           w_down: torch.Tensor, out_float: bool = False) -> torch.Tensor:
+    """SwiGLU FFN: silu taken in fp32 and cast back before ``* up``.
+    ``out_float`` returns the down-projection unrounded, in fp32 (the
+    reference's ``preferred_element_type``): a tensor-parallel caller
+    whose ``w_down`` is row-sharded sums the fp32 partials across shards
+    and rounds once, after the whole contraction."""
     g = x @ w_gate
     u = x @ w_up
     h = F.silu(g.float()).to(x.dtype) * u
+    if out_float:
+        return h.float() @ w_down.float()
     return h @ w_down
 
 

@@ -23,6 +23,7 @@ from repro_torch.serving.engine import (
     PagedModelRunner,
     TokenBuffer,
     TokenRef,
+    serve_follower,
 )
 from repro_torch.serving.cluster import ServingCluster
 from repro_torch.serving.faults import (
@@ -62,6 +63,11 @@ from repro_torch.serving.request import (
     RequestState,
     reset_request_ids,
 )
+from repro_torch.serving.tensor_parallel import (
+    MeshSlice,
+    make_serving_slices,
+    shard_params,
+)
 
 __all__ = ["BatchScheduler", "IterationBatch", "IterationPlan",
            "KeyPrefixMatcher", "PrefillChunk", "SchedStats", "Segment",
@@ -79,4 +85,6 @@ __all__ = ["BatchScheduler", "IterationBatch", "IterationPlan",
            "HandoffError", "handoff", "decode_targets", "drive_handoffs",
            "FAULT_KINDS", "DispatchEffects", "FaultInjector", "FaultPlan",
            "FaultSpec", "InstanceCrashed", "TransferFault",
-           "LoadShedder", "RecoveryManager", "RecoveryRecord"]
+           "LoadShedder", "RecoveryManager", "RecoveryRecord",
+           "MeshSlice", "make_serving_slices", "serve_follower",
+           "shard_params"]

@@ -54,9 +54,10 @@ control plane (:class:`LoadBalancer` / :class:`TimeSlotDispatcher` /
   transfer runs on this thread between synced iterations: no dispatch
   thread is mid-step on either engine of a transfer.
 
-Not ported yet, and raising ``NotImplementedError`` naming their
-``ROADMAP.md`` item when reached: tensor-parallel mesh slices
-(``on_mesh_slices``, ``model_parallel > 1``).
+* **Tensor-parallel instances** — :meth:`on_mesh_slices` (and
+  ``from_config`` with ``model_parallel > 1``) puts each instance on its
+  own slice of the process group's ranks; the cluster runs on rank 0 and
+  the other ranks serve their shards (``serving/tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -71,8 +72,6 @@ from repro_torch.serving.engine import LLMEngine, PagedModelRunner
 from repro_torch.serving.faults import FaultInjector, FaultPlan, InstanceCrashed
 from repro_torch.serving.recovery import LoadShedder, RecoveryManager
 from repro_torch.serving.request import CompletionRecord, Request
-
-_TENSOR_PARALLEL = "(ROADMAP.md Queue 1 item 1)"
 
 
 class ServingCluster:
@@ -144,6 +143,8 @@ class ServingCluster:
         self.clock = clock
         self.tracer = tracer
         self._pool: Optional[ThreadPoolExecutor] = None
+        # on mesh slices: the runners whose followers close() shuts down
+        self._followed: List[PagedModelRunner] = []
         # elasticity: the factory mints engines for scale_up (set by
         # from_config; manual clusters may pass their own); the autoscaler
         # is attached post-construction and consulted at step start.
@@ -190,18 +191,66 @@ class ServingCluster:
 
     # ---------------------------------------------------------------- factories
     @classmethod
-    def on_mesh_slices(cls, *args, **kwargs) -> "ServingCluster":
-        """Data-parallel instances over tensor-parallel mesh slices."""
-        raise NotImplementedError(
-            f"tensor-parallel mesh slices are not ported yet "
-            f"{_TENSOR_PARALLEL}")
+    def on_mesh_slices(cls, model, params, orchestrator, *,
+                       n_instances: int, model_parallel: int = 1,
+                       ranks=None, device=None,
+                       runner_kwargs: Optional[dict] = None,
+                       engine_kwargs: Optional[dict] = None,
+                       tracer: Tracer = NULL_TRACER, **cluster_kwargs
+                       ) -> Optional["ServingCluster"]:
+        """Place ``n_instances`` engines on disjoint tensor-parallel mesh
+        slices: the production topology, data-parallel instances x
+        tensor-parallel shards.
+
+        Every rank of the process group calls this with the same
+        arguments (it creates the slices' groups, a collective:
+        ``tensor_parallel.make_serving_slices``).  The ranks (default:
+        all of them) are carved into ``n_instances`` consecutive slices
+        of ``model_parallel`` ranks, no rank shared between slices, and
+        each rank of a slice builds a :class:`PagedModelRunner` on its
+        shard.  The driver, global rank 0, builds the engines (instance
+        ids 0..N-1, sharing ``tracer``) and the cluster, and returns it;
+        closing the cluster ends the followers.  Every other rank serves
+        its slice until then (:func:`~repro_torch.serving.engine.
+        serve_follower`) and returns None.  ``model_parallel=1`` places
+        one unsharded instance on each rank.
+
+        Runner construction kwargs (``num_blocks``, ``block_size``, ...)
+        go in ``runner_kwargs``, per-engine kwargs (``max_batch``,
+        ``enable_prefix_cache``, ...) in ``engine_kwargs``, and the rest
+        (``dispatcher``, ``pipelined``, ...) to the cluster constructor.
+        The topology is fixed at launch: no elastic engine factory."""
+        from repro_torch.models.sharding import validate_serving_tp
+        from repro_torch.serving.engine import serve_follower
+        from repro_torch.serving.tensor_parallel import (
+            DRIVER,
+            make_serving_slices,
+        )
+
+        validate_serving_tp(model.cfg, model_parallel)
+        slices = make_serving_slices(n_instances, model_parallel, ranks)
+        runners = [PagedModelRunner(model, params, device=device, mesh=m,
+                                    **(runner_kwargs or {}))
+                   if m.is_driver or m.is_member else None
+                   for m in slices]
+        if slices[0].rank != DRIVER:
+            for r in runners:
+                if r is not None:
+                    serve_follower(r)
+            return None
+        engines = [LLMEngine(r, instance_id=i, tracer=tracer,
+                             **(engine_kwargs or {}))
+                   for i, r in enumerate(runners)]
+        cluster = cls(engines, orchestrator, tracer=tracer, **cluster_kwargs)
+        cluster._followed = runners
+        return cluster
 
     @classmethod
     def from_config(cls, model, params, orchestrator,
                     config: ServingConfig, *, backend=None, device=None,
-                    clock: Callable[[], float] = time.monotonic,
+                    ranks=None, clock: Callable[[], float] = time.monotonic,
                     tracer: Tracer = NULL_TRACER, **cluster_kwargs
-                    ) -> "ServingCluster":
+                    ) -> Optional["ServingCluster"]:
         """Build the whole cluster from ONE :class:`ServingConfig`.
 
         The config describes "an instance like the others": the returned
@@ -209,17 +258,30 @@ class ServingCluster:
         engines (params shared via :meth:`PagedModelRunner.clone`,
         private KV pool), so :meth:`scale_up` can add capacity at
         runtime.  ``device=None`` means the CUDA card and raises without
-        one; ``params`` must live on the device."""
+        one; ``params`` must live on the device.  ``model_parallel > 1``
+        routes through :meth:`on_mesh_slices` over the process group's
+        ranks (or ``ranks``): every rank calls this, the driver gets the
+        cluster, the others serve and get None; the topology is static,
+        with no elastic factory."""
         from repro_torch.core.scheduler import FCFSScheduler
 
-        if config.model_parallel > 1:
-            raise NotImplementedError(
-                f"model_parallel={config.model_parallel}: tensor "
-                f"parallelism is not ported yet {_TENSOR_PARALLEL}")
         if config.tracing and tracer is NULL_TRACER:
             tracer = Tracer(clock=clock)
         scheduler = (cluster_kwargs.pop("scheduler", None)
                      or config.make_policy(orchestrator) or FCFSScheduler())
+        if config.model_parallel > 1:
+            runner_kwargs = dict(config.runner_kwargs(), backend=backend)
+            cluster = cls.on_mesh_slices(
+                model, params, orchestrator,
+                n_instances=config.n_instances,
+                model_parallel=config.model_parallel, ranks=ranks,
+                device=device, runner_kwargs=runner_kwargs,
+                engine_kwargs=config.engine_kwargs(), tracer=tracer,
+                scheduler=scheduler, clock=clock, **cluster_kwargs)
+            if cluster is not None:
+                cluster.config = config
+                cluster._arm_fault_plane(config, tracer)
+            return cluster
         runner0 = PagedModelRunner.from_config(model, params, config,
                                                backend=backend,
                                                device=device)
@@ -693,7 +755,11 @@ class ServingCluster:
         return out
 
     def close(self):
-        """Shut down the dispatch worker pool (idempotent)."""
+        """Shut down the dispatch worker pool and, on mesh slices, end
+        the followers' loops (idempotent)."""
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+        followed, self._followed = self._followed, []
+        for r in followed:
+            r.shutdown()

@@ -14,6 +14,7 @@ KV memory in use / capacity, running/waiting counts, preemption counter.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -29,8 +30,10 @@ from repro_torch.models.layers import (
     layer_slice,
     lm_logits,
     rms_norm,
+    swiglu,
 )
 from repro_torch.models.model import LanguageModel, ffn_block
+from repro_torch.models.sharding import validate_serving_tp
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serving.batch_scheduler import (
@@ -44,6 +47,13 @@ from repro_torch.serving.faults import InstanceCrashed
 from repro_torch.serving.kv_cache import BlockManager
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import Request
+from repro_torch.serving.tensor_parallel import (
+    DRIVER,
+    MeshSlice,
+    Op,
+    raw_kv,
+    shard_params,
+)
 
 
 # =============================================================================
@@ -59,18 +69,50 @@ def _layer_qkv(lp, x, sin, cos, cfg):
     return attn_mod.apply_rope(q, sin, cos), attn_mod.apply_rope(k, sin, cos), v
 
 
-def _layer_finish(x, o, lp, cfg):
+def _layer_finish(x, o, lp, cfg, reduce=None):
     """Transformer-layer tail: attention output projection and the FFN or
     MoE block (``models.model.ffn_block``), both residual.  ``o`` is
-    (..., H*hd)."""
-    x = x + o @ lp["attn"]["wo"]
-    return x + ffn_block(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    (..., H*hd).
+
+    ``reduce`` is a tensor-parallel slice's all-reduce.  ``o`` then holds
+    the shard's local heads and ``wo`` the matching rows, and the FFN's
+    ``w_down`` its rows of the shard's ``d_ff`` columns, so both products
+    are partial sums: the two megatron all-reduces of a layer.  Each is
+    formed and summed in fp32 and rounded to the activation dtype once,
+    after the whole contraction, as the reference's
+    ``preferred_element_type=f32`` products and ``psum`` do.  Without
+    ``reduce`` the ops are the unsharded ones, unchanged."""
+    if reduce is None:
+        x = x + o @ lp["attn"]["wo"]
+        return x + ffn_block(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    x = x + reduce(o.float() @ lp["attn"]["wo"].float()).to(x.dtype)
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + reduce(swiglu(h2, **lp["ffn"], out_float=True)).to(x.dtype)
 
 
 # IterationBatch arrays uploaded to the device, in order
 _BATCH_FIELDS = ("tokens_p", "positions_p", "tables_p", "tokens_d",
                  "positions_d", "tables_d", "write_slots", "sample_rows",
                  "cow_src", "cow_dst")
+_SAMPLE_ROWS = _BATCH_FIELDS.index("sample_rows")
+
+
+def _shape_words(shapes) -> List[int]:
+    """The batch arrays' shapes (1-D or 2-D) as two header words each."""
+    words = []
+    for shp in shapes:
+        if not 1 <= len(shp) <= 2:
+            raise ValueError(f"batch array of shape {shp}")
+        words += [shp[0], shp[1] if len(shp) == 2 else -1]
+    return words
+
+
+def _shapes_of(words) -> List[Tuple[int, ...]]:
+    """Inverse of :func:`_shape_words` (the header's trailing words are
+    padding)."""
+    words = words[:2 * len(_BATCH_FIELDS)]
+    return [(a,) if b < 0 else (a, b)
+            for a, b in zip(words[0::2], words[1::2])]
 
 
 class PagedModelRunner:
@@ -108,6 +150,27 @@ class PagedModelRunner:
     path's ``decode_batch`` attends through ``backend`` too;
     ``prefill_suffix`` attends densely over the gathered resident pages,
     as the reference's suffix step does.
+
+    **Tensor parallelism** (``mesh``, a :class:`~repro_torch.serving.
+    tensor_parallel.MeshSlice`).  Each rank of the slice builds the
+    runner with the same arguments and the FULL ``params``; it keeps its
+    megatron shard of the layer weights (``tensor_parallel.
+    shard_params``: QKV and FFN gate/up columns, O and FFN down rows; the
+    embedding, norms and LM head replicated), a pool of its own
+    ``n_kv / tp`` KV heads, and runs the same step bodies on a local
+    config (``num_heads / tp``, ``num_kv_heads / tp``), so both attention
+    kernels run at the local head count; the two all-reduces of each
+    layer are in :func:`_layer_finish`.  Every rank computes the same
+    argmax from the all-reduced activations and the replicated head.
+    The block manager stays head-agnostic: block tables, batch metadata
+    and ``pool_bytes`` are those of the whole pool.  The driver (global
+    rank 0) builds the engine over its runner, which posts every step to
+    the slice's other ranks; they run :func:`serve_follower`.  A driver
+    off the slice holds no shard and receives each result from the
+    slice's first rank.  ``device=None`` on rank ``r`` means card ``r %
+    device_count``.  ``pool_address()`` is then the tuple of every
+    shard's address, in rank order.  A one-rank slice only places the
+    runner: the steps are the unsharded ones.
     """
 
     # the step functions whose input-shape signatures jit_cache_size counts
@@ -119,15 +182,16 @@ class PagedModelRunner:
                  backend: Optional[str] = None,
                  ragged_backend: Optional[str] = None,
                  donate_pool: bool = True,
-                 device=None):
+                 device=None, mesh: Optional[MeshSlice] = None):
         cfg = model.cfg
         assert model.uniform_kind == "attn", "paged runner serves attention archs"
         assert cfg.sliding_window is None, "windowed paged decode is not ported"
-        self.device = resolve_device(device)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params live on {params['embed'].device}, "
-                             f"the runner on {self.device}")
-        self.model, self.cfg, self.params = model, cfg, params
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.tp
+        validate_serving_tp(cfg, self.tp)
+        self.device = resolve_device(device,
+                                     None if mesh is None else mesh.rank)
+        self.model, self.cfg = model, cfg
         self.block_size, self.num_blocks = block_size, num_blocks
         self.max_batch = max_batch
         self.donate_pool = donate_pool
@@ -137,24 +201,47 @@ class PagedModelRunner:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.ragged_backend not in kops.RAGGED_BACKENDS:
             raise ValueError(f"unknown ragged backend {self.ragged_backend!r}")
-        self._layers = [layer_slice(params["layers"], i)
-                        for i in range(cfg.num_layers)]
-        self._new_pool()
+        # local (per-shard) config: the step bodies reshape activations by
+        # head counts; head_dim is pinned so it cannot follow num_heads
+        self._lcfg = (dataclasses.replace(
+            cfg, num_heads=cfg.num_heads // self.tp,
+            num_kv_heads=cfg.num_kv_heads // self.tp,
+            head_dim=cfg.resolved_head_dim) if self.tp > 1 else cfg)
+        self._reduce = mesh.all_reduce if self.tp > 1 else None
+        self._holds_shard = mesh is None or mesh.is_member
+        self._posts = (mesh is not None and mesh.is_driver
+                       and mesh.control is not None)
+        # runners of one slice (a root and its clones) are numbered alike
+        # on every rank: the driver names the runner in each post
+        self._rid, self._next_rid = 0, [1]
+        self.params, self._layers = None, []
+        self._pool_buf = self.pool = None
+        if self._holds_shard:
+            if params["embed"].device != self.device:
+                raise ValueError(f"params live on {params['embed'].device}, "
+                                 f"the runner on {self.device}")
+            if self.tp > 1:
+                params = shard_params(params, cfg, self.tp, mesh.index)
+            self.params = params
+            self._layers = [layer_slice(params["layers"], i)
+                            for i in range(cfg.num_layers)]
+            self._new_pool()
         self._shape_keys = {f: set() for f in self._STEP_FNS}
         # perf counters live on a metrics registry (obs.metrics);
         # n_dispatches counts the steps issued: one per fused iteration;
-        # on the legacy path each prefill (2), suffix chunk, copy, decode
-        # step and argmax; one per read_blocks / write_blocks
+        # on the legacy path each prefill (2; 1 when sharded), suffix
+        # chunk, copy, decode step and argmax; one per read_blocks /
+        # write_blocks
         self.metrics = MetricsRegistry()
         self.n_dispatches = 0
 
     def _new_pool(self) -> None:
-        """Fresh zeroed pool, with the spare padding block (see class
-        docstring)."""
-        cfg = self.cfg
+        """Fresh zeroed pool of this shard's KV heads, with the spare
+        padding block (see class docstring)."""
+        lcfg = self._lcfg
         self._set_pool(torch.zeros(
-            (cfg.num_layers, 2, self.num_blocks + 1, self.block_size,
-             cfg.num_kv_heads, cfg.resolved_head_dim),
+            (lcfg.num_layers, 2, self.num_blocks + 1, self.block_size,
+             lcfg.num_kv_heads, lcfg.resolved_head_dim),
             dtype=self.model.dtype, device=self.device))
 
     def _set_pool(self, buf: torch.Tensor) -> None:
@@ -176,6 +263,23 @@ class PagedModelRunner:
         """Record the input-shape signature of one step-function call."""
         self._shape_keys[fn].add(key)
 
+    def _post(self, op: Op, *words: int, payload=None) -> None:
+        """Driver: send one step to the slice's followers (no-op on a
+        runner without any)."""
+        if self._posts:
+            self.mesh.post(op, self._rid, *words, payload=payload)
+
+    def _result(self, out, shape, dtype: torch.dtype):
+        """A step's result on this rank: ``out``, computed here (and sent
+        on to the driver when this rank relays), or on a driver that holds
+        no shard the slice's first rank's."""
+        if self.mesh is not None:
+            if not self._holds_shard:
+                return self.mesh.from_first(shape, dtype)
+            if self.mesh.relays:
+                self.mesh.send(out, DRIVER)
+        return out
+
     @property
     def n_dispatches(self) -> int:
         """Alias over ``metrics.counter("n_dispatches")``."""
@@ -187,18 +291,34 @@ class PagedModelRunner:
 
     def metrics_snapshot(self) -> dict:
         """Registry snapshot with the derived gauges refreshed (step-shape
-        signatures seen, resident pool bytes)."""
+        signatures seen, resident pool bytes: the whole pool's, every
+        shard's, spare block included)."""
+        cfg = self.cfg
         self.metrics.set("jit_cache_size", self.jit_cache_size())
-        self.metrics.set("pool_bytes", self._pool_buf.numel()
-                         * self._pool_buf.element_size())
+        self.metrics.set("pool_bytes", cfg.num_layers * 2
+                         * (self.num_blocks + 1) * self.block_size
+                         * cfg.num_kv_heads * cfg.resolved_head_dim
+                         * self.model.dtype.itemsize)
         return self.metrics.snapshot()
 
-    def pool_address(self) -> int:
+    def pool_address(self):
         """Device address of the pool (``data_ptr()``): stable for the
         runner's lifetime, since every update is in place — unless
         ``donate_pool=False``, where every pool-writing step moves it.
-        Call between synced iterations only."""
-        return self._pool_buf.data_ptr()
+        A sharded runner returns the tuple of every shard's address, in
+        rank order, each of which must be stable.  Call between synced
+        iterations only."""
+        if self.mesh is None:
+            return self._pool_buf.data_ptr()
+        self._post(Op.ADDRESS)
+        return self._address()
+
+    def _address(self):
+        local = (torch.tensor([self._pool_buf.data_ptr()], dtype=torch.int64)
+                 if self._holds_shard else None)
+        addrs = tuple(int(a) for a in self.mesh.gather(local, (1,),
+                                                       torch.int64))
+        return addrs if self.tp > 1 or not addrs else addrs[0]
 
     def jit_cache_size(self) -> int:
         """Distinct input-shape signatures the runner's step functions
@@ -215,15 +335,31 @@ class PagedModelRunner:
         (L, 2, n_blocks, block_size, n_kv, hd) holding the exact bits —
         float32 for a float32 pool; for a bfloat16 pool, which numpy
         cannot hold, the raw bits as ``uint16`` (``write_blocks`` takes
-        them back as such).  The pool is only *read*: ``pool_address()``
+        them back as such).  A sharded runner gathers every shard's KV
+        heads to the driver.  The pool is only *read*: ``pool_address()``
         is unchanged.  Must run between synced iterations."""
         self.n_dispatches += 1
-        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
-                              device=self.device)
-        kv = self.pool.index_select(2, idx)
+        ids = torch.as_tensor(np.asarray(block_ids, np.int32))
+        self._post(Op.READ, payload=ids)
+        return self._read(ids)
+
+    def _read(self, ids: torch.Tensor) -> Optional[np.ndarray]:
+        kv = None
+        if self._holds_shard:
+            kv = self.pool.index_select(
+                2, ids.to(self.device, torch.long)).cpu()
+        if self.mesh is not None:
+            lcfg = self._lcfg
+            parts = self.mesh.gather(
+                kv, (lcfg.num_layers, 2, len(ids), self.block_size,
+                     lcfg.num_kv_heads, lcfg.resolved_head_dim),
+                self.model.dtype)
+            if not parts:                      # a follower's part is sent
+                return None
+            kv = torch.cat(parts, dim=4)       # along the KV heads
         if kv.dtype == torch.bfloat16:
-            return kv.view(torch.int16).cpu().numpy().view(np.uint16)
-        return kv.cpu().numpy()
+            return kv.view(torch.int16).numpy().view(np.uint16)
+        return kv.numpy()
 
     def write_blocks(self, kv: np.ndarray, block_ids: Sequence[int]):
         """Scatter transferred KV into ``block_ids``, in place — the
@@ -231,45 +367,69 @@ class PagedModelRunner:
         returns (``uint16`` raw bits for a bfloat16 pool).  One step: the
         host-to-device copy and one ``index_copy_`` through the pool
         view, so ``pool_address()`` is unchanged (under
-        ``donate_pool=True``)."""
+        ``donate_pool=True``).  A sharded runner splits ``kv`` along the
+        KV heads and sends each shard its part."""
         assert kv.shape[2] == len(block_ids)
         self.n_dispatches += 1
         self._called("write_blocks", len(block_ids))
-        kv = np.ascontiguousarray(kv)
-        if kv.dtype in (np.uint16, np.int16):
-            if self.model.dtype != torch.bfloat16:
-                raise TypeError("raw 16-bit KV needs a bfloat16 pool")
-            src = torch.from_numpy(kv.view(np.int16)).view(torch.bfloat16)
-        else:
-            src = torch.from_numpy(kv)
+        src = raw_kv(kv)
+        if src.dtype == torch.int16 and self.model.dtype != torch.bfloat16:
+            raise TypeError("raw 16-bit KV needs a bfloat16 pool")
+        ids = torch.as_tensor(np.asarray(block_ids, np.int32))
+        if self.mesh is None:
+            return self._write(src, ids)
+        if src.dtype != torch.int16:
+            src = src.float()
+        self._post(Op.WRITE, int(src.dtype == torch.int16), payload=ids)
+        own = self.mesh.scatter(src.chunk(self.tp, dim=4))
+        if own is not None:
+            self._write(own, ids)
+
+    def _write(self, src: torch.Tensor, ids: torch.Tensor) -> None:
+        if src.dtype == torch.int16:
+            src = src.view(torch.bfloat16)
         src = src.to(self.device, self.model.dtype)
-        idx = torch.as_tensor(np.asarray(block_ids, np.int64),
-                              device=self.device)
-        self._writable_pool().index_copy_(2, idx, src)
+        self._writable_pool().index_copy_(
+            2, ids.to(self.device, torch.long), src)
 
     # -- legacy per-chunk path -------------------------------------------------
-    @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, block_table: List[int]):
         """tokens (S,) int32 -> last-token logits (V,).  Fills the pool.
 
         Two steps: the model's dense prefill, then the scatter of its
-        contiguous KV into the prompt's pages."""
-        tokens = torch.as_tensor(tokens, device=self.device)
-        s, bs = int(tokens.shape[0]), self.block_size
-        nb = -(-s // bs)
+        contiguous KV into the prompt's pages.  A sharded runner routes
+        through :meth:`prefill_suffix` with nothing cached instead (one
+        step), as the reference does: the dense prefill makes full-head
+        KV, which no shard can scatter."""
+        if self.tp > 1:
+            return self.prefill_suffix(tokens, block_table, 0)
+        tokens = torch.as_tensor(tokens).cpu().to(torch.int32)
+        s = int(tokens.shape[0])
+        nb = -(-s // self.block_size)
         self.n_dispatches += 2
         self._called("prefill", s)
         self._called("scatter", s, nb)
-        logits, cache = self.model.prefill(self.params, tokens[None])
-        kv = cache["kv"][:, :, 0]                         # (L, 2, S, KV, hd)
-        kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, nb * bs - s))
-        kv = kv.reshape(kv.shape[0], 2, nb, bs, *kv.shape[3:])
-        bt = torch.as_tensor(block_table[:nb], dtype=torch.long,
-                             device=self.device)
-        self._writable_pool().index_copy_(2, bt, kv)
-        return logits[0]
+        meta = torch.cat([tokens, torch.as_tensor(block_table[:nb],
+                                                  dtype=torch.int32)])
+        self._post(Op.PREFILL, s, payload=meta)
+        return self._prefill(meta, s)
 
     @torch.no_grad()
+    def _prefill(self, meta: torch.Tensor, s: int):
+        out = None
+        if self._holds_shard:
+            bs = self.block_size
+            meta = meta.to(self.device)
+            tokens, bt = meta[:s], meta[s:].long()
+            nb = bt.shape[0]
+            logits, cache = self.model.prefill(self.params, tokens[None])
+            kv = cache["kv"][:, :, 0]                     # (L, 2, S, KV, hd)
+            kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, nb * bs - s))
+            kv = kv.reshape(kv.shape[0], 2, nb, bs, *kv.shape[3:])
+            self._writable_pool().index_copy_(2, bt, kv)
+            out = logits[0]
+        return self._result(out, (self.cfg.vocab_size,), self.model.dtype)
+
     def prefill_suffix(self, tokens: torch.Tensor, block_table: List[int],
                        n_cached: int):
         """tokens (S,) = the next prompt chunk; block_table covers the
@@ -279,51 +439,67 @@ class PagedModelRunner:
         chunk's KV is written, at its exact token slots, so chunk
         boundaries need not align to blocks.  Returns the chunk's
         last-token logits (V,)."""
-        cfg = self.cfg
-        hd, n_kv, bs = cfg.resolved_head_dim, cfg.num_kv_heads, self.block_size
-        tokens = torch.as_tensor(tokens, device=self.device)
+        bs = self.block_size
+        tokens = torch.as_tensor(tokens).cpu().to(torch.int32)
         s = int(tokens.shape[0])
         assert s > 0 and 0 <= n_cached
         n_ctx_blocks = -(-n_cached // bs)
         self.n_dispatches += 1
         self._called("suffix", s, n_ctx_blocks, n_cached)
-        ctx_bt = torch.as_tensor(block_table[:n_ctx_blocks],
-                                 dtype=torch.long, device=self.device)
-        write_idx = torch.as_tensor(
-            [block_table[p // bs] * bs + p % bs
-             for p in range(n_cached, n_cached + s)],
-            dtype=torch.long, device=self.device)
-        positions = n_cached + torch.arange(s, device=self.device)
-        sin, cos = attn_mod.rope_at(positions, hd, cfg.rope_theta)
-        k_pos = torch.arange(n_cached + s, device=self.device)
-        bias = attn_mod._mask_bias(positions, k_pos)
-        x = embed_tokens(self.params, tokens[None]).to(self.model.dtype)
-        pool = self._writable_pool()
-        for i, lp in enumerate(self._layers):
-            q, k, v = _layer_qkv(lp, x, sin, cos, cfg)    # (1, S, ., hd)
-            # resident K/V: the covering pages (roped at write), first
-            # n_cached rows — the last page may be partially filled
-            pk = pool[i, 0][ctx_bt].reshape(-1, n_kv, hd)[:n_cached]
-            pv = pool[i, 1][ctx_bt].reshape(-1, n_kv, hd)[:n_cached]
-            kf = torch.cat([pk[None], k], dim=1)           # (1, P+S, KV, hd)
-            vf = torch.cat([pv[None], v], dim=1)
-            probs = torch.softmax(attn_mod._gqa_scores(q, kf) + bias, dim=-1)
-            o = attn_mod._gqa_out(probs, vf).reshape(1, s, -1)
-            pool[i, 0].view(-1, n_kv, hd).index_copy_(0, write_idx, k[0])
-            pool[i, 1].view(-1, n_kv, hd).index_copy_(0, write_idx, v[0])
-            x = _layer_finish(x, o, lp, cfg)
-        x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
-        return lm_logits(self.params, x[:, -1], cfg)[0]
+        write_idx = [block_table[p // bs] * bs + p % bs
+                     for p in range(n_cached, n_cached + s)]
+        meta = torch.cat([tokens, torch.as_tensor(
+            list(block_table[:n_ctx_blocks]) + write_idx,
+            dtype=torch.int32)])
+        self._post(Op.SUFFIX, s, n_cached, payload=meta)
+        return self._suffix(meta, s, n_cached)
+
+    @torch.no_grad()
+    def _suffix(self, meta: torch.Tensor, s: int, n_cached: int):
+        out = None
+        if self._holds_shard:
+            cfg = self._lcfg
+            hd, n_kv = cfg.resolved_head_dim, cfg.num_kv_heads
+            meta = meta.to(self.device)
+            tokens = meta[:s]
+            ctx_bt, write_idx = meta[s:-s].long(), meta[-s:].long()
+            positions = n_cached + torch.arange(s, device=self.device)
+            sin, cos = attn_mod.rope_at(positions, hd, cfg.rope_theta)
+            k_pos = torch.arange(n_cached + s, device=self.device)
+            bias = attn_mod._mask_bias(positions, k_pos)
+            x = embed_tokens(self.params, tokens[None]).to(self.model.dtype)
+            pool = self._writable_pool()
+            for i, lp in enumerate(self._layers):
+                q, k, v = _layer_qkv(lp, x, sin, cos, cfg)  # (1, S, ., hd)
+                # resident K/V: the covering pages (roped at write), first
+                # n_cached rows — the last page may be partially filled
+                pk = pool[i, 0][ctx_bt].reshape(-1, n_kv, hd)[:n_cached]
+                pv = pool[i, 1][ctx_bt].reshape(-1, n_kv, hd)[:n_cached]
+                kf = torch.cat([pk[None], k], dim=1)         # (1, P+S, KV, hd)
+                vf = torch.cat([pv[None], v], dim=1)
+                probs = torch.softmax(attn_mod._gqa_scores(q, kf) + bias,
+                                      dim=-1)
+                o = attn_mod._gqa_out(probs, vf).reshape(1, s, -1)
+                pool[i, 0].view(-1, n_kv, hd).index_copy_(0, write_idx, k[0])
+                pool[i, 1].view(-1, n_kv, hd).index_copy_(0, write_idx, v[0])
+                x = _layer_finish(x, o, lp, cfg, self._reduce)
+            x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
+            out = lm_logits(self.params, x[:, -1], cfg)[0]
+        return self._result(out, (self.cfg.vocab_size,), self.model.dtype)
 
     def copy_block(self, src: int, dst: int):
         """Copy-on-write data path: duplicate one physical block, in
         place (one step)."""
         self.n_dispatches += 1
         self._called("copy")
-        pool = self._writable_pool()
-        pool[:, :, dst] = pool[:, :, src]
+        self._post(Op.COPY, src, dst)
+        self._copy(src, dst)
 
-    @torch.no_grad()
+    def _copy(self, src: int, dst: int) -> None:
+        if self._holds_shard:
+            pool = self._writable_pool()
+            pool[:, :, dst] = pool[:, :, src]
+
     def decode_batch(self, tokens: np.ndarray, positions: np.ndarray,
                      block_tables: np.ndarray, live: np.ndarray):
         """One decode token per row, every input padded to a fixed batch;
@@ -335,14 +511,23 @@ class PagedModelRunner:
         self._called("decode", b, nbmax)
         arrays = [np.asarray(a, np.int32).ravel()
                   for a in (tokens, positions, block_tables, live)]
-        flat = torch.from_numpy(np.concatenate(arrays)).to(self.device)
-        tokens_t, positions_t = flat[:b], flat[b:2 * b]
-        tables = flat[2 * b:2 * b + b * nbmax].view(b, nbmax)
-        live_t = flat[2 * b + b * nbmax:].bool()
-        return self._decode_step(tokens_t, positions_t, tables, live_t)
+        flat = torch.from_numpy(np.concatenate(arrays))
+        self._post(Op.DECODE, b, nbmax, payload=flat)
+        return self._decode(flat, b, nbmax)
 
+    def _decode(self, flat: torch.Tensor, b: int, nbmax: int):
+        out = None
+        if self._holds_shard:
+            flat = flat.to(self.device)
+            tokens_t, positions_t = flat[:b], flat[b:2 * b]
+            tables = flat[2 * b:2 * b + b * nbmax].view(b, nbmax)
+            live_t = flat[2 * b + b * nbmax:].bool()
+            out = self._decode_step(tokens_t, positions_t, tables, live_t)
+        return self._result(out, (b, self.cfg.vocab_size), self.model.dtype)
+
+    @torch.no_grad()
     def _decode_step(self, tokens, positions, block_tables, live):
-        cfg = self.cfg
+        cfg = self._lcfg
         hd, n_kv, bs = cfg.resolved_head_dim, cfg.num_kv_heads, self.block_size
         g = cfg.num_heads // n_kv
         b = tokens.shape[0]
@@ -361,7 +546,8 @@ class PagedModelRunner:
             vp.view(-1, n_kv, hd).index_copy_(0, slots, v)
             o = kops.paged_attention(q.reshape(b, n_kv, g, hd), kp, vp,
                                      block_tables, ctx, backend=self.backend)
-            x = _layer_finish(x, o.reshape(b, cfg.num_heads * hd), lp, cfg)
+            x = _layer_finish(x, o.reshape(b, cfg.num_heads * hd), lp, cfg,
+                              self._reduce)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         return lm_logits(self.params, x, cfg)
 
@@ -369,7 +555,9 @@ class PagedModelRunner:
         """A new runner over the same model and params (shared, not
         copied) with a fresh zeroed pool of its own.  The step-shape
         signatures are shared, as the reference's clones share their
-        compiled step functions."""
+        compiled step functions.  A sharded runner clones on every rank
+        of its slice: each shard shares its params and owns a fresh
+        pool."""
         c = object.__new__(PagedModelRunner)
         c.model, c.cfg, c.params = self.model, self.cfg, self.params
         c.device, c._layers = self.device, self._layers
@@ -377,20 +565,61 @@ class PagedModelRunner:
         c.max_batch, c.backend = self.max_batch, self.backend
         c.ragged_backend = self.ragged_backend
         c.donate_pool = self.donate_pool
+        c.mesh, c.tp, c._lcfg = self.mesh, self.tp, self._lcfg
+        c._reduce, c._holds_shard = self._reduce, self._holds_shard
+        c._posts, c._next_rid = self._posts, self._next_rid
+        c._rid = self._next_rid[0]
+        self._next_rid[0] += 1
+        self._post(Op.CLONE, c._rid)
         c._shape_keys = self._shape_keys
-        c._new_pool()
+        c._pool_buf = c.pool = None
+        if c._holds_shard:
+            c._new_pool()
         c.metrics = MetricsRegistry()
         c.n_dispatches = 0
         return c
 
+    def shutdown(self) -> None:
+        """Driver: end the loops of the slice's followers (they serve
+        this runner and every clone of it).  No-op without followers."""
+        self._post(Op.SHUTDOWN)
+
+    def _serve(self, op: Op, words: List[int],
+               payload: Optional[torch.Tensor]) -> None:
+        """Follower: run one posted step on this rank's shard."""
+        if op == Op.FUSED:
+            self._fused(payload, _shapes_of(words))
+        elif op == Op.PREFILL:
+            self._prefill(payload, words[0])
+        elif op == Op.SUFFIX:
+            self._suffix(payload, words[0], words[1])
+        elif op == Op.DECODE:
+            self._decode(payload, words[0], words[1])
+        elif op == Op.COPY:
+            self._copy(words[0], words[1])
+        elif op == Op.READ:
+            self._read(payload)
+        elif op == Op.WRITE:
+            lcfg = self._lcfg
+            src = self.mesh.recv(
+                (lcfg.num_layers, 2, len(payload), self.block_size,
+                 lcfg.num_kv_heads, lcfg.resolved_head_dim),
+                torch.int16 if words[0] else torch.float32, DRIVER)
+            self._write(src, payload)
+        elif op == Op.ADDRESS:
+            self._address()
+        else:
+            raise ValueError(f"follower: unexpected {op!r}")
+
     @classmethod
     def from_config(cls, model: LanguageModel, params: dict, config,
                     backend: Optional[str] = None,
-                    device=None) -> "PagedModelRunner":
+                    device=None, mesh: Optional[MeshSlice] = None
+                    ) -> "PagedModelRunner":
         """Build a runner from a :class:`~repro_torch.serving.config.
-        ServingConfig` (the device, being placement rather than
-        configuration, is supplied separately)."""
-        return cls(model, params, backend=backend, device=device,
+        ServingConfig` (the device and the mesh slice, being placement
+        rather than configuration, are supplied separately)."""
+        return cls(model, params, backend=backend, device=device, mesh=mesh,
                    **config.runner_kwargs())
 
     # -- fused ragged iteration: one step per engine iteration ----------------
@@ -401,33 +630,42 @@ class PagedModelRunner:
         segment row as a device tensor.  On the card the call only
         enqueues work: the batch metadata goes over in one non-blocking
         copy from pinned memory, nothing here waits on the device, and
-        the caller syncs (one transfer) when it consumes the tokens."""
+        the caller syncs (one transfer) when it consumes the tokens.  A
+        sharded runner first posts the batch's one flat int32 buffer to
+        its followers."""
         self.n_dispatches += 1
-        arrays = self._upload(batch)
-        self._called("fused", *(tuple(a.shape) for a in arrays))
-        return self._step(*arrays)
-
-    def _upload(self, batch: IterationBatch) -> List[torch.Tensor]:
-        """The batch's int32 arrays as device tensors, via ONE host-to-
-        device copy of their concatenation."""
         arrays = [np.asarray(getattr(batch, f), np.int32)
                   for f in _BATCH_FIELDS]
+        shapes = [a.shape for a in arrays]
+        self._called("fused", *shapes)
         flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
+        self._post(Op.FUSED, *_shape_words(shapes), payload=flat)
+        return self._fused(flat, shapes)
+
+    def _fused(self, flat: torch.Tensor, shapes):
+        out = (self._step(*self._upload(flat, shapes))
+               if self._holds_shard else None)
+        return self._result(out, shapes[_SAMPLE_ROWS], torch.int32)
+
+    def _upload(self, flat: torch.Tensor, shapes) -> List[torch.Tensor]:
+        """The batch's int32 arrays as device tensors, via ONE host-to-
+        device copy of their concatenation ``flat``."""
         if self.device.type == "cuda":
             # pinned staging makes the copy truly asynchronous; the
             # caching host allocator keeps the buffer alive until the copy
             # has run
             flat = flat.pin_memory().to(self.device, non_blocking=True)
         out, o = [], 0
-        for a in arrays:
-            out.append(flat[o:o + a.size].view(a.shape))
-            o += a.size
+        for shp in shapes:
+            n = int(np.prod(shp))
+            out.append(flat[o:o + n].view(shp))
+            o += n
         return out
 
     @torch.no_grad()
     def _step(self, tokens_p, positions_p, tables_p, tokens_d, positions_d,
               tables_d, write_slots, sample_rows, cow_src, cow_dst):
-        cfg = self.cfg
+        cfg = self._lcfg
         hd, n_kv = cfg.resolved_head_dim, cfg.num_kv_heads
         g = cfg.num_heads // n_kv
         pool = self._writable_pool()
@@ -465,10 +703,36 @@ class PagedModelRunner:
             od = kops.paged_attention(qg[tp:], kp, vp, tables_d, context_d,
                                       backend=self.backend)
             o = torch.cat([op.reshape(tp, n_kv, g, hd), od])
-            x = _layer_finish(x, o.reshape(-1, cfg.num_heads * hd), lp, cfg)
+            x = _layer_finish(x, o.reshape(-1, cfg.num_heads * hd), lp, cfg,
+                              self._reduce)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         logits = lm_logits(self.params, x[sample_rows.long()], cfg)  # (S, V)
         return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def serve_follower(runner: PagedModelRunner) -> dict:
+    """A follower rank's loop: run every step the driver posts to
+    ``runner``'s slice — on ``runner`` or on a clone of it, made here when
+    the driver clones — until the driver's :meth:`PagedModelRunner.
+    shutdown`.  Returns the runners served, by id (0 is ``runner``)."""
+    mesh = runner.mesh
+    if mesh is None or mesh.is_driver or not mesh.is_member:
+        raise ValueError("serve_follower runs on a follower rank of a "
+                         "mesh slice")
+    runners = {runner._rid: runner}
+    while True:
+        op, words, payload = mesh.receive()
+        if op == Op.SHUTDOWN:
+            return runners
+        r = runners[words[0]]
+        if op == Op.CLONE:
+            c = r.clone()
+            if c._rid != words[1]:
+                raise RuntimeError(f"clone {c._rid} here, {words[1]} on the "
+                                   "driver")
+            runners[c._rid] = c
+        else:
+            r._serve(op, words[1:], payload)
 
 
 # =============================================================================
@@ -803,8 +1067,7 @@ class LLMEngine:
         # written by an earlier chunk of this very iteration
         for c in plan.chunks:
             toks = torch.as_tensor(
-                np.asarray(c.req.prompt_tokens, np.int32)[c.start:c.end],
-                device=runner.device)
+                np.asarray(c.req.prompt_tokens, np.int32)[c.start:c.end])
             table = self.bm.block_table(c.req.req_id)
             if c.start == 0 and c.is_last:
                 logits = runner.prefill(toks, table)

@@ -16,8 +16,9 @@ On the reduced qwen3-1.7b in fp32, with the JAX weights carried across:
 * ``from_config`` builds legacy (``fused_iteration=False``) and
   out-of-place (``donate_pool=False``) clusters that drain to the JAX
   package's streams, and arms the load shedder for ``slo_e2e_s``;
-* the tensor-parallel paths the port defers raise
-  ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+* the tensor-parallel factories refuse, before any group is made, what
+  the reference refuses (its messages), and without a process group say
+  so (``tests/test_torch_tensor_parallel.py`` drives them).
 """
 import dataclasses
 import threading
@@ -420,18 +421,39 @@ def test_from_config_arms_the_shedder(models):
     assert _from_config(models).shedder is None
 
 
-DEFERRED = {
-    # name: (call, ROADMAP.md Queue 1 item named in the message)
-    "model_parallel=2": (lambda m: _from_config(m, model_parallel=2), 1),
-    "on_mesh_slices": (
+def _jax_slice_message(n_slices, model_parallel, n_devices):
+    from repro.launch.mesh import make_slice_meshes
+    with pytest.raises(ValueError) as e:
+        make_slice_meshes(n_slices, model_parallel,
+                          devices=jax.devices()[:1] * n_devices)
+    return str(e.value)
+
+
+TENSOR_PARALLEL_ERRORS = {
+    # name: (call, error type, the message the port must give)
+    "model_parallel=2 without a process group": (
+        lambda m: _from_config(m, model_parallel=2, n_instances=2),
+        RuntimeError, lambda: "no process group"),
+    "too few ranks": (
         lambda m: tserving.ServingCluster.on_mesh_slices(
-            m[2], m[3], None, n_instances=2, model_parallel=2), 1),
+            m[2], m[3], None, n_instances=2, model_parallel=2,
+            ranks=[0, 1, 2]),
+        ValueError, lambda: _jax_slice_message(2, 2, 3)),
+    "model_parallel=0": (
+        lambda m: tserving.ServingCluster.on_mesh_slices(
+            m[2], m[3], None, n_instances=1, model_parallel=0, ranks=[0]),
+        ValueError, lambda: _jax_slice_message(1, 0, 1)),
+    "n_instances=0": (
+        lambda m: tserving.ServingCluster.on_mesh_slices(
+            m[2], m[3], None, n_instances=0, model_parallel=2,
+            ranks=[0, 1]),
+        ValueError, lambda: _jax_slice_message(0, 2, 2)),
 }
 
 
-@pytest.mark.parametrize("path", list(DEFERRED))
-def test_deferred_paths_raise_naming_their_roadmap_item(models, path):
-    call, item = DEFERRED[path]
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md Queue 1 item {item}\b"):
+@pytest.mark.parametrize("path", list(TENSOR_PARALLEL_ERRORS))
+def test_tensor_parallel_factories_refuse_as_the_reference(models, path):
+    call, error, message = TENSOR_PARALLEL_ERRORS[path]
+    with pytest.raises(error) as e:
         call(models)
+    assert str(e.value).startswith(message())

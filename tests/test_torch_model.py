@@ -166,18 +166,6 @@ def test_decode_step_matches_jax(models):
           1e-4 if tm.cfg.dtype == "float32" else 5e-2)
 
 
-def _raise_tensor_parallel_config(model, params):
-    from repro_torch.core import Orchestrator
-    from repro_torch.serving import ServingCluster, ServingConfig
-    ServingCluster.from_config(model, params, Orchestrator(),
-                               ServingConfig(model_parallel=2), device="cpu")
-
-
-def _raise_mesh_slices(model, params):
-    from repro_torch.serving import ServingCluster
-    ServingCluster.on_mesh_slices(model, params)
-
-
 def _raise_windowed_paged_runner(model, params):
     from repro_torch.serving import PagedModelRunner
     cfg = dataclasses.replace(model.cfg, sliding_window=64)
@@ -186,17 +174,52 @@ def _raise_windowed_paged_runner(model, params):
 
 
 @pytest.mark.parametrize("case, error, match", [
-    (_raise_tensor_parallel_config, NotImplementedError, "Queue 1 item 1"),
-    (_raise_mesh_slices, NotImplementedError, "Queue 1 item 1"),
     (_raise_windowed_paged_runner, AssertionError, "windowed"),
-], ids=["tensor-parallel-config", "mesh-slices", "windowed-paged-runner"])
+], ids=["windowed-paged-runner"])
 def test_unported_families_raise(models, case, error, match):
-    """Every family and training are ported; what still raises: tensor
-    parallelism, naming its ROADMAP.md item, and a windowed config in the
-    paged runner, which the reference's runner refuses too."""
+    """Every family, training and tensor parallelism are ported; what
+    still raises: a windowed config in the paged runner, which the
+    reference's runner refuses too."""
     jm, jp, tm, tp = models
     with pytest.raises(error, match=match):
         case(tm, tp)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tensor_parallel_shards_recompose_the_params(tp):
+    """``shard_params`` narrows exactly the leaves the reference's serving
+    specs put on "model": concatenated in shard order they give the full
+    tree back, and the replicated leaves stay the very same tensors."""
+    from repro.models.sharding import serving_param_specs as jax_specs
+    from repro_torch.serving import shard_params
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              num_heads=8, num_kv_heads=4, head_dim=64)
+    model = LanguageModel(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    shards = [shard_params(params, cfg, tp, i) for i in range(tp)]
+    # the reference's rules read a mesh through these two attributes only
+    jmesh = type("Mesh", (), {"shape": {"data": 1, "model": tp},
+                              "axis_names": ("data", "model")})()
+    jcfg = dataclasses.replace(jax_get_config("qwen3-1.7b").reduced(),
+                               num_heads=8, num_kv_heads=4, head_dim=64)
+    jspec = jax_specs(jax.tree_util.tree_map(
+        lambda t: jax.ShapeDtypeStruct(tuple(t.shape), jnp.float32),
+        params, is_leaf=lambda t: isinstance(t, torch.Tensor)), jcfg, jmesh)
+
+    def walk(full, parts, spec):
+        if isinstance(full, dict):
+            for k in full:
+                walk(full[k], [p[k] for p in parts], spec[k])
+            return
+        dims = [d for d, ax in enumerate(spec) if ax == "model"]
+        if not dims:
+            assert all(p is full for p in parts)
+            return
+        (d,) = dims
+        assert all(p.shape[d] * tp == full.shape[d] for p in parts)
+        assert torch.equal(torch.cat(parts, d), full)
+
+    walk(params, shards, jspec)
 
 
 def test_loss_is_a_finite_scalar(models):
@@ -251,7 +274,7 @@ def test_port_imports_no_jax():
             "env = dict(os.environ)\n"
             "import repro_torch.launch, repro_torch.launch.mesh, "
             "repro_torch.launch.dryrun, repro_torch.models.sharding, "
-            "repro_torch.models.spmd\n"
+            "repro_torch.models.spmd, repro_torch.serving.tensor_parallel\n"
             "assert dict(os.environ) == env, 'the environment changed'\n"
             "import torch.distributed as dist\n"
             "assert not dist.is_available() or not dist.is_initialized()\n"

@@ -1,6 +1,7 @@
 """The model on DTensors computes what it computes on plain tensors.
 
-Four processes form a gloo process group on the CPU, each a rank of a
+Four processes form a gloo process group on the CPU (through a file
+store in a temporary directory), each a rank of a
 (2, 2) ("data", "model") mesh and of a (1, 4) one, where the reduced
 qwen3's 2 KV heads split unevenly over 4 model ranks.  Each rank builds
 the same seeded float32 weights, shards params, caches and tokens by
@@ -13,7 +14,6 @@ sharded sums add in another order; the Adafactor step at 1e-3, see its
 test).
 """
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -136,7 +136,7 @@ def _plain(params, tokens, extra, n):
     return (p, full(tokens)[:, :n], *(full(e) for e in extra))
 
 
-def _worker(rank: int, port: int, out_path: str) -> None:
+def _worker(rank: int, store: str, out_path: str) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.configs import ShapeConfig
@@ -145,7 +145,7 @@ def _worker(rank: int, port: int, out_path: str) -> None:
                                              batch_pspec, cache_pspecs,
                                              param_shardings)
     from repro_torch.training.optimizer import tree_map
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=4)
     try:
         results = {}
@@ -195,22 +195,18 @@ def _worker(rank: int, port: int, out_path: str) -> None:
         dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def sharded():
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src),
                OMP_NUM_THREADS="1")
-    port = _free_port()
+    # a file store in a fresh directory: no TCP port another test worker
+    # could take between choosing it and binding it
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out.pt")
+        store = os.path.join(tmp, "store")
         procs = [subprocess.Popen([sys.executable, __file__, str(r),
-                                   str(port), out], env=env,
+                                   store, out], env=env,
                                   stderr=subprocess.PIPE, text=True)
                  for r in range(4)]
         errs = []
@@ -261,4 +257,4 @@ def test_dtensor_adafactor_step_equals_plain(sharded, mesh):
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    _worker(int(sys.argv[1]), sys.argv[2], sys.argv[3])
