@@ -149,6 +149,37 @@ fails prints its error and the script exits non-zero.
              identity phase's CUDA run under its margin rule.
              qwen2-moe-a2.7b at tp 2 must be refused.  A process that
              fails or outlives its deadline fails the phase.
+12. overload excessive load and faults at full width (bf16; the launch
+             counters are zeroed before its first drain and read after its
+             last bf16 run).  A host replay of the scheduler (no model)
+             picks the pool: the smallest power of two of at least twice
+             the largest request's blocks on which the drain's 16 prompts,
+             asking 192 new tokens, preempt at least 4 times.  On it the
+             drain must preempt and evict exactly as replayed, keep its
+             pool in place and launch both kernels; a 4096-block drain of
+             the same traffic is its baseline.  Collect deferred, the same
+             drain without EOS, with an eos_token no stream emits (the
+             cost of collect's per-iteration sync) and with one that stops
+             at least 4 streams early: each stream must stop where its run
+             sampled that token.  A 3-instance cluster (Kairos policy,
+             1024-block pools, pipelined) drains 24 shared-prefix requests
+             fault-free, under the crash storm of
+             benchmarks/chaos_drain.py and under a mixed plan (2 crashes,
+             a straggle, an oom): no request failed, lost or duplicated,
+             every fault fired, each straggle and nothing else fenced by
+             the step deadline, and each dead pool unreferenced and off the
+             card once the step that found the crash returns (cycle
+             collector off).  On the fault-free cluster mid-drain, a
+             migrate_many under a planned transfer fault must roll back
+             (target blocks as before, source blocks bit-equal, streams
+             unchanged).  The workflow phase's QA burst on 256-block pools
+             under an oom storm on both instances, with the dispatcher's
+             OOM feedback and without.  Then float32 at 4 layers: the tight
+             drain on the CUDA kernels against the 4096-block drain on the
+             plain versions, an EOS drain against the run without, and the
+             mixed plan against the fault-free cluster (serial loop), each
+             under the margin rule; the preemptions, evictions, crashes
+             and replays traced are exported to a Chrome trace.
 
 Then the per-kernel summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -164,7 +195,6 @@ import importlib
 import json
 import math
 import os
-import socket
 import statistics
 import subprocess
 import sys
@@ -692,11 +722,11 @@ def time_ragged(args):
 # =============================================================================
 
 
-def make_requests(mod, seed: int, vocab: int):
+def make_requests(mod, seed: int, vocab: int, max_new: int = 32):
     """16 requests from 4 agents: each agent has a system prompt of
     256-1024 tokens, each request adds 64-512 tokens of its own and asks
-    for 32 new tokens.  Returns (first wave: one request per agent, second
-    wave: the other 12)."""
+    for ``max_new`` new tokens.  Returns (first wave: one request per
+    agent, second wave: the other 12)."""
     rng = np.random.default_rng(seed)
     system = [rng.integers(0, vocab, int(rng.integers(256, 1025)))
               for _ in range(4)]
@@ -707,19 +737,22 @@ def make_requests(mod, seed: int, vocab: int):
         toks = np.concatenate([system[a], own]).astype(np.int32)
         reqs.append(mod.Request(agent_name=f"agent{a}", msg_id=f"m{i:02d}",
                                 prompt_len=len(toks), prompt_tokens=toks,
-                                max_new_tokens=32,
+                                max_new_tokens=max_new,
                                 shared_prefix_len=len(system[a])))
     return reqs[:4], reqs[4:]
 
 
-def drain(engine, waves, max_iters: int = 2000, addr_seq=None):
+def drain(engine, waves, max_iters: int = 2000, addr_seq=None,
+          force_sync: bool = True):
     """Submit the first wave; submit the second once every first-wave
     request has its first token (so its system prompt is in the prefix
     cache); step until drained.  Returns (finished, iterations, the pool
     addresses seen, wall seconds, per-iteration (has prefill chunks — None
     on the legacy path, which composes no batch — seconds)).  The pool
     address after each iteration is appended to ``addr_seq`` when
-    given."""
+    given.  ``force_sync=False`` collects without waiting for the card:
+    the new tokens stay there until the next iteration's batch or a
+    finished request needs them."""
     import torch
     first, second = waves
     clock = engine.clock
@@ -743,7 +776,7 @@ def drain(engine, waves, max_iters: int = 2000, addr_seq=None):
         has_prefill = (batch[0].tokens_p.size > 0 if batch is not None
                        else None)
         iters += 1
-        done.extend(engine.collect(force_sync=True))
+        done.extend(engine.collect(force_sync=force_sync))
         steps.append((has_prefill, time.perf_counter() - t_step))
         addrs.add(engine.runner.pool_address())
         if addr_seq is not None:
@@ -780,11 +813,12 @@ def runner_for(model, params, backend=None, num_blocks=4096,
                                     device=DEVICE)
 
 
-def engine_for(runner, fused=True):
+def engine_for(runner, fused=True, **kw):
     from repro_torch import serving
     serving.reset_request_ids()
     return serving.LLMEngine(runner, max_batch=16, enable_prefix_cache=True,
-                             prefill_chunk_tokens=512, fused_iteration=fused)
+                             prefill_chunk_tokens=512, fused_iteration=fused,
+                             **kw)
 
 
 def device_busy(profile_events, wall_s: float, ranges=()):
@@ -901,6 +935,11 @@ def phase_drain(state, seed: int):
            "pool_bytes": snap["pool_bytes"],
            "pool_address_stable": True,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # the overload phase reports its drains beside this one
+    state["drain_summary"] = {k: out[k] for k in (
+        "iterations", "wall_s", "generated_tokens", "prefill_tokens",
+        "prefill_tokens_saved", "ttft_median_s", "tpot_median_s",
+        "iteration_s_median_with_prefill", "iteration_s_median_decode_only")}
 
     # the same traffic again, under the profiler, for the idle share
     try:
@@ -1156,12 +1195,15 @@ def host_clock(wf):
 
 
 def run_workflow(model, params, seed: int, n_tasks: int, device=DEVICE,
-                 pipelined: bool = True, profile: bool = False):
+                 pipelined: bool = True, profile: bool = False,
+                 config=None, cluster_kwargs=None):
     """The QA app with ``n_tasks`` tasks submitted at once, on the
     cluster ``Workflow.add_engine`` would build, but at the given model's
-    width.  Returns (workflow, msg ids, results, LLM calls, submit time,
-    wall seconds, host seconds and calls by part, the torch.profiler
-    events of the run's device activity when ``profile``)."""
+    width; ``config`` replaces WF_CONFIG and ``cluster_kwargs`` go to
+    ``ServingCluster.from_config``.  Returns (workflow, msg ids, results,
+    LLM calls, submit time, wall seconds, host seconds and calls by part,
+    the torch.profiler events of the run's device activity when
+    ``profile``)."""
     from repro_torch.agents import Workflow
     from repro_torch.obs import Tracer
     from repro_torch.serving import (
@@ -1170,12 +1212,13 @@ def run_workflow(model, params, seed: int, n_tasks: int, device=DEVICE,
         reset_request_ids,
     )
     reset_request_ids()
-    wf = Workflow(app_name="QA", config=ServingConfig(**WF_CONFIG),
+    wf = Workflow(app_name="QA",
+                  config=ServingConfig(**(config or WF_CONFIG)),
                   tracer=Tracer(), device=device, pipelined=pipelined)
     # what add_engine does, on these weights
     wf.cluster = ServingCluster.from_config(
         model, params, wf.orch, wf.config, pipelined=wf.pipelined,
-        tracer=wf.tracer, device=device)
+        tracer=wf.tracer, device=device, **(cluster_kwargs or {}))
     wf.vocab_size = model.cfg.vocab_size
     calls = []
     for name, cls in qa_agents(seed, wf.vocab_size, calls).items():
@@ -1412,15 +1455,16 @@ def el_cluster(model, params, **cfg):
     """A ``ServingCluster.from_config`` of full-width-like instances:
     2048 blocks of 16 tokens, 16 sequences, prefix cache, 512-token
     chunks, FCFS; ``cfg`` overrides any of it and adds cluster kwargs
-    (``clock``, ``tracer``, ``pipelined``) and the runners' ``backend``."""
+    (``clock``, ``tracer``, ``pipelined``, ``faults``) and the runners'
+    ``backend``."""
     from repro_torch.core import HardwareProfile, Orchestrator
     from repro_torch.serving import (
         ServingCluster,
         ServingConfig,
         reset_request_ids,
     )
-    kw = {k: cfg.pop(k) for k in ("clock", "tracer", "pipelined", "backend")
-          if k in cfg}
+    kw = {k: cfg.pop(k) for k in ("clock", "tracer", "pipelined", "backend",
+                                  "faults") if k in cfg}
     config = dict(n_instances=2, num_blocks=EL_BLOCKS, block_size=16,
                   max_batch=16, prefix_caching=True, prefill_chunk_tokens=512,
                   policy="fcfs")
@@ -2933,15 +2977,11 @@ def storage_bytes(args) -> int:
     return sum(seen.values())
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def card_vs_dryrun(cfg, shape, seed: int) -> dict:
+def card_vs_dryrun(cfg, shape, seed: int, tmp: str) -> dict:
     """One step of ``shape`` on a one-rank mesh: the dry-run's accounting
-    (fake one-rank mesh, on the host) against the card's real run."""
+    (fake one-rank mesh, on the host) against the card's real run.  The
+    rank meets its group through a file store in the directory ``tmp``
+    (no TCP port to pick and lose to another process)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2955,8 +2995,9 @@ def card_vs_dryrun(cfg, shape, seed: int) -> dict:
             f"{rec.get('traceback', '')}")
     dry_s = time.perf_counter() - t0
     mem = rec["memory"]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", rank=0, world_size=1)
+    store = os.path.join(tmp, f"store_{shape.name}")
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
     try:
         mesh = NamedMesh(init_device_mesh("cuda", (1, 1),
                                           mesh_dim_names=("data", "model")))
@@ -3022,10 +3063,10 @@ def phase_dryrun(state, seed: int):
             card = {
                 "train": card_vs_dryrun(cfg, ShapeConfig(
                     "card_train", DRYRUN_TRAIN[1], DRYRUN_TRAIN[0], "train"),
-                    seed),
+                    seed, tmp),
                 "decode": card_vs_dryrun(cfg, ShapeConfig(
                     "card_decode", DRYRUN_DECODE[1], DRYRUN_DECODE[0],
-                    "decode"), seed)}
+                    "decode"), seed, tmp)}
             t0 = time.perf_counter()
             outs = [h.communicate(timeout=600) for h in hosts]
             waited = time.perf_counter() - t0
@@ -3296,15 +3337,776 @@ def phase_tensor_parallel(state, seed: int):
     return out
 
 
+# =============================================================================
+# phase 12: excessive load and faults
+# =============================================================================
+
+OV_NEW = 192              # new tokens a request of the preempting drain
+OV_MIN_PREEMPTED = 4
+OV_WIDE_BLOCKS = 4096     # the drain phase's pool: nothing preempts there
+OV_MIN_EOS_STOPS = 4      # requests the EOS token must stop early
+OV_CHAOS = dict(n_instances=3, num_blocks=1024, block_size=16, max_batch=16,
+                prefix_caching=True, prefill_chunk_tokens=512,
+                policy="kairos")
+OV_CHAOS_REQUESTS = 24
+OV_CHAOS_PREFIX = 512
+OV_CHAOS_TAIL = (64, 513)
+OV_CHAOS_NEW = 32
+OV_CRASH_SEED = 5                 # benchmarks/chaos_drain.py's crash storm
+OV_MIXED_SEEDS = (0, 7, 123)      # tests/test_torch_faults.py's mixed plans
+OV_DEADLINE_OVER_MAX = 2.0        # step deadline / slowest fault-free step
+OV_STRAGGLE_OVER_DEADLINE = 4.0   # straggle delay / the step deadline
+OV_FREE_SLACK = 16 * 2**20        # what a crash step may keep beside the pool
+OV_WF_BLOCKS = 256
+OV_WF_OOM_STEPS = (8, 9, 10)      # planned ooms on both instances: a storm
+OV_WF_ITERATION_BUDGET = 20000    # engine iterations for the fenced burst
+
+
+class ScheduleOnly:
+    """A runner that computes nothing: each step returns token 0 for every
+    row.  Through ``drain`` it drives the real scheduler (admission,
+    prefix cache, growth, eviction, preemption) on the host.  Without EOS
+    the schedule depends only on the prompts and their lengths, never on
+    the tokens a model emits, so it is the card's schedule."""
+
+    def __init__(self, num_blocks: int, block_size: int = 16,
+                 max_batch: int = 16):
+        from repro_torch.obs.metrics import MetricsRegistry
+        self.num_blocks, self.block_size = num_blocks, block_size
+        self.max_batch = max_batch
+        self.metrics = MetricsRegistry()
+
+    def run_iteration(self, batch):
+        import torch
+        return torch.zeros(len(batch.segments), dtype=torch.int64)
+
+    def pool_address(self) -> int:
+        return 0
+
+
+def ov_replay(seed: int, vocab: int, num_blocks: int, max_new: int) -> dict:
+    """The schedule of the drain's traffic on a pool of ``num_blocks``."""
+    from repro_torch import serving
+    eng = engine_for(ScheduleOnly(num_blocks))
+    _, iters, _, _, _ = drain(eng, make_requests(serving, seed, vocab,
+                                               max_new), max_iters=20000)
+    return {"iterations": iters, "n_preempted": eng.stats.n_preempted,
+            "n_evicted": eng.prefix_cache.stats.n_evicted,
+            "prefill_tokens": eng.stats.prefill_tokens}
+
+
+def ov_pool(seed: int, vocab: int):
+    """The smallest power-of-two pool of at least twice the largest
+    request's blocks whose schedule preempts OV_MIN_PREEMPTED times, with
+    the schedules tried; and the drain's own 32 new tokens on every
+    power-of-two pool up to OV_WIDE_BLOCKS."""
+    from repro_torch import serving
+    first, second = make_requests(serving, seed, vocab, OV_NEW)
+    largest = max(-(-(r.prompt_len + r.max_new_tokens) // 16)
+                  for r in first + second)
+    nb = 1 << (2 * largest - 1).bit_length()
+    tried, pool = {}, None
+    while pool is None and nb <= OV_WIDE_BLOCKS:
+        tried[nb] = ov_replay(seed, vocab, nb, OV_NEW)
+        if tried[nb]["n_preempted"] >= OV_MIN_PREEMPTED:
+            pool = nb
+        nb *= 2
+    require(pool is not None, f"no pool preempts {OV_MIN_PREEMPTED} times: "
+            f"{tried}")
+    short = {n: ov_replay(seed, vocab, n, 32)
+             for n in (256, 512, 1024, 2048, OV_WIDE_BLOCKS)}
+    return pool, {"largest_request_blocks": largest,
+                  f"new_{OV_NEW}": tried, "new_32": short}
+
+
+def ov_drain(model, params, waves, num_blocks: int, backend=None,
+             force_sync: bool = True, eos: int = -1, tracer=None,
+             margins=None):
+    """One drain of ``waves`` through an engine on a pool of
+    ``num_blocks``; with ``margins`` (a list) the run's margin log is
+    appended to it.  Returns (report, finished, engine, per-step (has
+    prefill, seconds), the sampled token on which each finished request's
+    last step was decided)."""
+    runner = runner_for(model, params, backend, num_blocks=num_blocks)
+    eng = engine_for(runner, eos_token=eos,
+                     **({} if tracer is None else {"tracer": tracer}))
+    sampled = {}
+    collect = eng.collect
+
+    def probed(force_sync=False):
+        batch, toks = eng._pending
+        done = collect(force_sync=force_sync)
+        rows = {s.req.req_id: j for j, s in enumerate(batch.segments)
+                if s.kind != "prefill"}
+        for r in done:
+            sampled[r.msg_id] = int(toks.host()[rows[r.req_id]])
+        return done
+
+    eng.collect = probed
+    addr = runner.pool_address()
+    if margins is not None:
+        log, undo = record_margins(runner)
+        margins.append(log)
+    try:
+        done, iters, addrs, wall, steps = drain(
+            eng, waves, max_iters=20000, force_sync=force_sync)
+    finally:
+        if margins is not None:
+            undo()
+    require(len(done) == 16, f"{len(done)} of 16 requests finished")
+    require(addrs == {addr}, "the pool moved during the drain")
+    require(runner.n_dispatches == iters,
+            f"{runner.n_dispatches} dispatches for {iters} iterations")
+    report = {"num_blocks": num_blocks, "iterations": iters,
+              "n_preempted": eng.stats.n_preempted,
+              "n_evicted": eng.prefix_cache.stats.n_evicted,
+              "prefill_tokens": eng.stats.prefill_tokens,
+              "prefill_tokens_saved": eng.stats.prefill_tokens_saved,
+              "generated_tokens": sum(r.output_len for r in done),
+              "wall_s": wall, "ttft_median_s": statistics.median(
+                  r.first_token_time - r.arrival_time for r in done),
+              "tpot_median_s": tpot_median(done),
+              "iteration_s_median_decode_only": statistics.median(
+                  [t for p, t in steps if not p] or [float("nan")]),
+              "iteration_s_median_with_prefill": statistics.median(
+                  [t for p, t in steps if p] or [float("nan")]),
+              "dispatches_per_iteration": runner.n_dispatches / iters,
+              "pool_address_stable": True}
+    return report, done, eng, steps, sampled
+
+
+def eos_cut(stream, eos: int):
+    """The engine's stop rule applied to a stream decoded without EOS: a
+    request finishes once the token it just sampled is ``eos``, before
+    feeding it; the first token (the prompt's argmax) is never checked."""
+    for i in range(1, len(stream)):
+        if stream[i] == eos:
+            return stream[:i]
+    return stream
+
+
+def pick_eos(streams, at_least: int) -> int:
+    """Of the tokens that stop at least ``at_least`` streams early, the
+    one that stops the fewest (ties: the smallest id), so the pool stays
+    under pressure."""
+    count = {}
+    for s in streams.values():
+        for t in set(s[1:]):
+            count[t] = count.get(t, 0) + 1
+    fit = [t for t, n in count.items() if n >= at_least]
+    require(fit, f"no token stops {at_least} streams early")
+    return min(fit, key=lambda t: (count[t], t))
+
+
+def eos_checks(done, sampled, eos: int, max_new: int) -> int:
+    """Every stream stops where its own run sampled ``eos``, or at
+    ``max_new``, and holds no ``eos`` past its first token.  Returns how
+    many stopped early."""
+    early = 0
+    for r in done:
+        s = [int(t) for t in r.output_tokens]
+        require(eos not in s[1:], f"{r.msg_id}: eos {eos} inside the stream")
+        if len(s) < max_new:
+            require(sampled[r.msg_id] == eos,
+                    f"{r.msg_id}: stopped at {len(s)} tokens on "
+                    f"{sampled[r.msg_id]}, not eos {eos}")
+            early += 1
+    return early
+
+
+def eos_rule(got, want, margins, eos: int, what: str) -> dict:
+    """``got`` (drained with ``eos``) against ``want`` (the same traffic
+    without): each stream must be ``want``'s cut by the stop rule, except
+    where the two runs part at a token whose top-2 margin in ``want``'s
+    run was at or below MARGIN (the parting may be the stop itself)."""
+    exact = near = 0
+    for msg in sorted(want):
+        g, cut, m = got[msg], eos_cut(want[msg], eos), margins[msg]
+        if g == cut:
+            exact += 1
+            continue
+        k = next((i for i in range(min(len(g), len(cut))) if g[i] != cut[i]),
+                 min(len(g), len(cut)))
+        require(k < len(m) and m[k] <= MARGIN,
+                f"{what} {msg}: with eos {eos} the stream parts from the run "
+                f"without at token {k}, margin {m[k] if k < len(m) else None}")
+        near += 1
+    return {"streams": len(want), "eos_cuts_exact": exact,
+            "near_tie_partings": near}
+
+
+def ov_preempting_drains(model, params, seed: int, vocab: int,
+                         pool: int, replay: dict) -> dict:
+    """Parts 1 and 3 in bf16 at full width, each drain collecting without
+    a forced sync (the host plans the next iteration while the card
+    computes this one): the tight pool against the wide one, then the
+    tight pool with an eos_token no stream emits (collect then syncs
+    every iteration, engine.collect; schedule and tokens stay, so the
+    run differs from the first only by the sync) and with one that stops
+    at least OV_MIN_EOS_STOPS streams early."""
+    from repro_torch import serving
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+
+    def run(blocks, eos=-1):
+        out = ov_drain(model, params, make_requests(serving, seed, vocab,
+                                                  OV_NEW), blocks,
+                       force_sync=False, eos=eos)
+        release_pools()
+        return out
+
+    launches0 = (paged_attention.launches, ragged_segment_attention.launches)
+    tight, done, _, _, _ = run(pool)
+    launched = {"paged_attention": paged_attention.launches - launches0[0],
+                "ragged_segment_attention":
+                    ragged_segment_attention.launches - launches0[1]}
+    require(min(launched.values()) > 0,
+            f"a kernel never launched in the tight drain: {launched}")
+    require(max(launched.values()) <= model.cfg.num_layers
+            * tight["iterations"], f"more than one launch per layer and "
+            f"iteration: {launched}")
+    tight["kernel_launches"] = launched
+    require(all(r.output_len == OV_NEW for r in done),
+            f"a request did not finish with {OV_NEW} tokens")
+    require(tight["n_preempted"] >= OV_MIN_PREEMPTED
+            and tight["n_evicted"] >= 1,
+            f"tight pool: {tight['n_preempted']} preemptions, "
+            f"{tight['n_evicted']} evictions")
+    require((tight["iterations"], tight["n_preempted"], tight["n_evicted"])
+            == (replay["iterations"], replay["n_preempted"],
+                replay["n_evicted"]),
+            f"the card's schedule {tight} is not the host replay's {replay}")
+    streams = streams_of(done)
+    wide, done, _, _, _ = run(OV_WIDE_BLOCKS)
+    require(wide["n_preempted"] == 0, "the wide pool preempted")
+    tight["prefill_tokens_beyond_wide_pool"] = (tight["prefill_tokens"]
+                                               - wide["prefill_tokens"])
+    tight["bf16_streams_diverged_from_wide_pool"] = divergences(
+        streams, streams_of(done))
+
+    unused = min(set(range(vocab)) - {t for v in streams.values()
+                                      for t in v})
+    synced, done, _, _, _ = run(pool, unused)
+    require(streams_of(done) == streams,
+            "an eos_token no stream emits changed the streams")
+    eos = pick_eos(streams, OV_MIN_EOS_STOPS)
+    with_eos, done, _, _, sampled = run(pool, eos)
+    early = eos_checks(done, sampled, eos, OV_NEW)
+    require(early >= OV_MIN_EOS_STOPS, f"eos {eos} stopped {early} early")
+    got = streams_of(done)
+    return {"max_new_tokens": OV_NEW, "collect": "deferred",
+            "tight_pool": tight, "wide_pool": wide,
+            "eos": {"eos_token": eos, "stopped_early": early,
+                    "streams_equal_to_eos_cut": sum(
+                        got[m] == eos_cut(streams[m], eos) for m in streams),
+                    "with_eos": with_eos,
+                    "eos_never_emitted": {"eos_token": unused, **synced},
+                    "sync_cost_tpot_s": synced["tpot_median_s"]
+                    - tight["tpot_median_s"]}}
+
+
+def ov_identity(model, params, seed: int, vocab: int, pool: int,
+                replay: dict, tracer) -> dict:
+    """Part 2 in float32, and EOS under its margin rule: the tight pool on
+    the CUDA kernels (traced: its preemptions and evictions are the
+    export's) against the wide pool on the plain versions."""
+    from repro_torch import serving
+    runs = {}
+    for key, blocks, backend, tr in (("cuda", pool, None, tracer),
+                                     ("ref", OV_WIDE_BLOCKS, "ref", None)):
+        logs = []
+        report, done, _, _, _ = ov_drain(
+            model, params, make_requests(serving, seed, vocab, OV_NEW), blocks,
+            backend, tracer=tr, margins=logs)
+        runs[key] = (report,) + streams_and_margins(done, logs[0], OV_NEW)
+        release_pools()
+    cuda, ref = runs["cuda"][0], runs["ref"][0]
+    require((cuda["iterations"], cuda["n_preempted"])
+            == (replay["iterations"], replay["n_preempted"]),
+            f"float32 schedule {cuda} is not the host replay's {replay}")
+    require(ref["n_preempted"] == 0, "the wide pool preempted")
+    out = {"layers": model.cfg.num_layers, "dtype": model.cfg.dtype,
+           "tight_cuda": cuda, "wide_ref": ref,
+           "tight_cuda_vs_wide_ref": margin_rule(
+               runs["cuda"][1], runs["ref"][1], runs["ref"][2],
+               "float32 tight cuda")}
+    want, margins = runs["cuda"][1:]
+    eos = pick_eos(want, OV_MIN_EOS_STOPS)
+    report, done, _, _, sampled = ov_drain(
+        model, params, make_requests(serving, seed, vocab, OV_NEW), pool,
+        eos=eos)
+    release_pools()
+    out["eos"] = {"eos_token": eos,
+                  "stopped_early": eos_checks(done, sampled, eos, OV_NEW),
+                  "n_preempted": report["n_preempted"],
+                  **eos_rule(streams_of(done), want, margins, eos,
+                             "float32 eos")}
+    return out
+
+
+def chaos_requests(mod, seed: int, vocab: int):
+    """24 requests from 3 agents at once, the shape of
+    ``benchmarks/chaos_drain.py``'s workload at serving lengths: a common
+    512-token prefix, a tail of 64-512 tokens each, 32 new tokens."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, OV_CHAOS_PREFIX)
+    out = []
+    for i in range(OV_CHAOS_REQUESTS):
+        toks = np.concatenate([prefix, rng.integers(
+            0, vocab, int(rng.integers(*OV_CHAOS_TAIL)))]).astype(np.int32)
+        out.append(mod.Request(agent_name=f"agent{i % 3}", msg_id=f"c{i:02d}",
+                               prompt_len=len(toks), prompt_tokens=toks,
+                               max_new_tokens=OV_CHAOS_NEW,
+                               shared_prefix_len=OV_CHAOS_PREFIX))
+    return out
+
+
+class CrashWatch:
+    """Runs after every cluster step.  Records the slowest engine's step
+    wall time and, after a step that found a crash, whether the dead
+    engines' pools are unreferenced and how far the card's allocated
+    bytes fell over that step."""
+
+    def __init__(self, cluster):
+        import weakref
+        import torch
+        self.pools = {e.instance_id: (weakref.ref(e.runner._pool_buf),
+                                      e.runner._pool_buf.nbytes)
+                      for e in cluster.engines}
+        self.crashes, self.crash_steps, self.step_walls = 0, [], []
+        torch.cuda.synchronize()
+        self.allocated = torch.cuda.memory_allocated()
+
+    def __call__(self, cluster, step):
+        import torch
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        self.step_walls.append(max(e.last_step_wall
+                                   for e in cluster.engines))
+        if cluster.recovery.n_crashes > self.crashes:
+            gone = {i for s in self.crash_steps for i in s["instances"]}
+            dead = sorted(set(self.pools) - gone
+                          - {e.instance_id for e in cluster.engines})
+            self.crash_steps.append({
+                "step": step, "instances": dead,
+                "pool_bytes": sum(self.pools[i][1] for i in dead),
+                "allocated_drop": self.allocated - allocated,
+                "pools_unreferenced": all(self.pools[i][0]() is None
+                                          for i in dead)})
+            self.crashes = cluster.recovery.n_crashes
+        self.allocated = allocated
+
+
+def without_collector(run):
+    """``run()`` with the cycle collector off: a pool that outlives its
+    engine then stays, instead of going at a collection that happens to
+    run."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        return run()
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def chaos_run(model, params, seed: int, vocab: int, plan=None, tracer=None,
+              pipelined=True, step_deadline_s=None, margins=None):
+    """The 24 requests through a fresh OV_CHAOS cluster under ``plan``:
+    none failed, lost or duplicated.  With ``margins`` (a list; needs
+    ``pipelined=False``) the runners' margin log is appended to it.
+    Returns (finished, metrics snapshot, CrashWatch, wall s, steps,
+    submit time)."""
+    from repro_torch import serving
+    cluster = el_cluster(model, params, faults=plan, pipelined=pipelined,
+                         step_deadline_s=step_deadline_s, **OV_CHAOS,
+                         **({} if tracer is None else {"tracer": tracer}))
+    watch = CrashWatch(cluster)
+    if margins is not None:
+        log, undo = record_margins(*(e.runner for e in cluster.engines))
+        margins.append(log)
+    reqs = chaos_requests(serving, seed, vocab)
+    t0 = time.monotonic()
+    try:
+        done, steps, wall = without_collector(
+            lambda: cluster_run(cluster, reqs, watch))
+    finally:
+        if margins is not None:
+            undo()
+    require(sorted(r.msg_id for r in done) == sorted(r.msg_id for r in reqs),
+            "the chaos cluster lost or duplicated a request")
+    failed = [r.msg_id for r in done
+              if r.state is serving.RequestState.FAILED]
+    require(not failed, f"requests failed: {failed}")
+    return done, cluster.metrics_snapshot(), watch, wall, steps, t0
+
+
+def e2e_summary(done) -> dict:
+    from repro_torch.obs import percentile
+    lat = [r.finish_time - r.arrival_time for r in done]
+    return ({"requests": len(lat), "e2e_median_s": statistics.median(lat),
+             "e2e_p90_s": percentile(lat, 90)} if lat
+            else {"requests": 0})
+
+
+def ov_mixed_plan(horizon: int, delay_s: float):
+    """The first of OV_MIXED_SEEDS whose mixed plan (2 crashes, 1
+    straggle, 1 oom) puts every straggle and oom on an instance before
+    that instance's crash, so all of them fire and are seen."""
+    from repro_torch.serving import FaultPlan
+    for seed in OV_MIXED_SEEDS:
+        plan = FaultPlan.generate(seed, [0, 1, 2], horizon=horizon,
+                                  n_crashes=2, n_straggles=1, n_ooms=1,
+                                  spare=(0,), straggle_delay_s=delay_s)
+        crash_at = {s.instance_id: s.step for s in plan.crashes()}
+        if all(s.step < crash_at.get(s.instance_id, horizon)
+               for s in plan if s.kind != "crash"):
+            return seed, plan
+    raise PhaseFailed(f"no seed of {OV_MIXED_SEEDS} fires every fault "
+                      f"within horizon {horizon}")
+
+
+def chaos_checks(plan, snap, watch, events) -> dict:
+    """What every faulted run must show: both crashes recovered onto the
+    spare, every planned fault fired, each straggle fenced and nothing
+    else fenced as a straggler, each dead pool unreferenced and off the
+    card once the step that found the crash returned."""
+    require(snap["n_crashes"] == 2 and snap["n_instances"] == 1,
+            f"{snap['n_crashes']} crashes, {snap['n_instances']} instances "
+            "left")
+    require(snap["n_faults_fired"] == len(plan),
+            f"{snap['n_faults_fired']} of {len(plan)} planned faults fired")
+    require(snap["n_recovery_failed"] == 0, "a recovery failed")
+    straggles = sorted(s.instance_id for s in plan if s.kind == "straggle")
+    fenced = sorted(e.instance_id for e in events
+                    if e.kind == "failure-detected"
+                    and e.data.get("reason") == "straggler")
+    require(fenced == straggles and snap["n_straggler_fences"]
+            == len(straggles), f"straggler fences on {fenced}, straggles "
+            f"planned on {straggles}")
+    dead = sorted(i for s in watch.crash_steps for i in s["instances"])
+    require(dead == sorted(s.instance_id for s in plan.crashes()),
+            f"dead instances {dead}")
+    for s in watch.crash_steps:
+        require(s["pools_unreferenced"],
+                f"a dead pool of {s['instances']} is still referenced")
+        require(s["allocated_drop"] >= s["pool_bytes"] - OV_FREE_SLACK,
+                f"allocated bytes fell by {s['allocated_drop']} over the "
+                f"crash step of {s['instances']}, pools of "
+                f"{s['pool_bytes']}")
+    return {"crash_steps": watch.crash_steps,
+            "straggler_fenced_instances": fenced,
+            "oom_fences": sum(e.kind == "oom-fence" for e in events)}
+
+
+def recovery_report(done, snap, events, base_tokens: int) -> dict:
+    """Reconstructions, replayed tokens, the replay tax, the seconds from
+    each crash to each reconstructed request's first token, and e2e
+    latency of the requests that were and were not on a dead
+    instance."""
+    first = {}
+    for e in events:
+        if e.kind == "first-token":
+            first.setdefault(e.req_id, []).append(e.ts)
+    to_first, victims = [], set()
+    for e in events:
+        if e.kind == "recovery-replay":
+            victims.add(e.req_id)
+            after = [t for t in first.get(e.req_id, ()) if t >= e.ts]
+            require(after, f"reconstructed request {e.req_id} never "
+                    "produced a first token")
+            to_first.append(min(after) - e.ts)
+    return {"reconstructed": int(snap["n_reconstructed"]),
+            "replayed_tokens": int(snap["n_replayed_tokens"]),
+            "recovery_replay_overhead": snap["n_replayed_tokens"]
+            / base_tokens,
+            "crash_to_first_token_s": to_first,
+            "on_dead_instances": e2e_summary(
+                [r for r in done if r.req_id in victims]),
+            "elsewhere": e2e_summary(
+                [r for r in done if r.req_id not in victims])}
+
+
+def ov_chaos(model, params, seed: int, vocab: int, tracer) -> tuple:
+    """Part 4 in bf16: the fault-free run, the crash storm and the mixed
+    plan, pipelined; the mixed run is traced into ``tracer``.  Returns
+    (report, fault-free streams, the plan's settings for the float32
+    replay)."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import FaultPlan
+    done, snap, watch, wall, steps, _ = chaos_run(model, params, seed, vocab)
+    base = streams_of(done)
+    base_tokens = sum(len(v) for v in base.values())
+    iters = {i: int(snap[f"engine{i}.n_dispatches"]) for i in range(3)}
+    horizon = max(2, min(iters.values()) // 2)
+    slowest = max(watch.step_walls)
+    deadline = OV_DEADLINE_OVER_MAX * slowest
+    delay = OV_STRAGGLE_OVER_DEADLINE * deadline
+    out = {"config": OV_CHAOS, "requests": OV_CHAOS_REQUESTS,
+           "fault_free": {"wall_s": wall, "steps": steps,
+                          "iterations_by_instance": iters,
+                          "slowest_step_s": slowest, **e2e_summary(done)},
+           "horizon": horizon, "step_deadline_s": deadline,
+           "straggle_delay_s": delay}
+    release_pools()
+    # the same drain stepped by the serial loop: what the dispatch
+    # threads of the pipelined one cost on one card
+    done, _, _, wall, steps, _ = chaos_run(model, params, seed, vocab,
+                                           pipelined=False)
+    out["fault_free_serial_loop"] = {
+        "wall_s": wall, "steps": steps, **e2e_summary(done),
+        "bf16_streams_diverged_from_pipelined": divergences(
+            streams_of(done), base)}
+    release_pools()
+    plans = {"crash_storm": (None, FaultPlan.generate(
+        OV_CRASH_SEED, [0, 1, 2], horizon=horizon, n_crashes=2, spare=(0,)))}
+    plans["mixed"] = ov_mixed_plan(horizon, delay)
+    for key, (plan_seed, plan) in plans.items():
+        tr = tracer if key == "mixed" else Tracer()
+        done, snap, watch, wall, steps, t0 = chaos_run(
+            model, params, seed, vocab, plan, tr, step_deadline_s=deadline)
+        events = [e for e in tr.events() if e.ts >= t0]
+        out[key] = {"seed": plan_seed,
+                    "plan": [dataclasses.astuple(s) for s in plan],
+                    "wall_s": wall, "steps": steps,
+                    **chaos_checks(plan, snap, watch, events),
+                    **recovery_report(done, snap, events, base_tokens),
+                    "bf16_streams_diverged_from_fault_free": divergences(
+                        streams_of(done), base)}
+        release_pools()
+    return out, base, (plans["mixed"][1], deadline)
+
+
+def ov_chaos_float32(model, params, seed: int, vocab: int, plan,
+                     deadline: float) -> dict:
+    """Part 4's float32 replay, stepped serially (the margins' hook is
+    shared): the mixed plan against the fault-free run under the margin
+    rule."""
+    logs = []
+    done, _, _, _, _, _ = chaos_run(model, params, seed, vocab,
+                                    pipelined=False, margins=logs)
+    want, margins = streams_and_margins(done, logs[0], OV_CHAOS_NEW)
+    release_pools()
+    done, snap, _, _, _, _ = chaos_run(
+        model, params, seed, vocab, plan, pipelined=False,
+        step_deadline_s=deadline)
+    require(snap["n_crashes"] == 2 and snap["n_faults_fired"] == len(plan)
+            and snap["n_straggler_fences"] == sum(
+                s.kind == "straggle" for s in plan),
+            f"float32: {snap['n_crashes']} crashes, "
+            f"{snap['n_faults_fired']} faults fired, "
+            f"{snap['n_straggler_fences']} straggler fences")
+    release_pools()
+    return {"layers": model.cfg.num_layers, "stepping": "serial",
+            "reconstructed": int(snap["n_reconstructed"]),
+            **margin_rule(streams_of(done), want, margins,
+                          "float32 chaos")}
+
+
+def ov_transfer(model, params, seed: int, vocab: int, base) -> dict:
+    """Part 5: mid-drain on the fault-free cluster, one ``migrate_many``
+    from instance 1 to instance 0 under a planned transfer fault.  It
+    must roll back: the target's free blocks as before the call, the
+    source's blocks bit-equal, the requests still running there, and
+    their streams the fault-free run's."""
+    from repro_torch import serving
+    from repro_torch.serving import (
+        FaultInjector,
+        FaultPlan,
+        FaultSpec,
+        TransferFault,
+    )
+    migration = importlib.import_module("repro_torch.serving.migration")
+    cluster = el_cluster(model, params, **OV_CHAOS)
+    rec = {}
+
+    def on_step(c, step):
+        if rec:
+            return
+        src, dst = c._by_id[1], c._by_id[0]
+        batch = [r for r in src.sched.running if r.output_len >= 4]
+        if len(batch) < 2:
+            return
+
+        def blocks(r):
+            table = src.bm.block_table(r.req_id)
+            return src.runner.read_blocks(table[:src.bm.blocks_needed(
+                r.prefilled_len + r.output_len)])
+
+        before = {r.msg_id: blocks(r) for r in batch}
+        free, cached = dst.bm.free_blocks, dst.bm.cached_blocks
+        writes = dst.runner.n_dispatches
+        faults = FaultInjector(FaultPlan([FaultSpec("transfer", 1, 0)]))
+        t = time.perf_counter()
+        try:
+            migration.migrate_many(src, dst, batch, c.clock(), faults=faults)
+            err = None
+        except migration.MigrationError as e:
+            err = e
+        rec["rollback_s"] = time.perf_counter() - t
+        require(err is not None and isinstance(err.__cause__, TransferFault),
+                f"the planned transfer fault did not roll back: {err!r}")
+        require(all(r in src.sched.running for r in batch)
+                and not any(r.req_id in dst.bm.owned_seqs() for r in batch),
+                "a request did not return to its source")
+        rec.update(
+            step=step, requests=sorted(r.msg_id for r in batch),
+            target_free_blocks={"before": free, "after": dst.bm.free_blocks},
+            target_cached_blocks={"before": cached,
+                                  "after": dst.bm.cached_blocks},
+            target_dispatches=dst.runner.n_dispatches - writes,
+            source_blocks_bit_equal=all(
+                np.array_equal(before[r.msg_id], blocks(r)) for r in batch))
+        require(dst.bm.free_blocks == free,
+                f"the target's free blocks {free} -> {dst.bm.free_blocks}")
+        require(rec["source_blocks_bit_equal"],
+                "the source's blocks changed through the rollback")
+
+    done, _, wall = cluster_run(cluster, chaos_requests(serving, seed, vocab),
+                                on_step)
+    require(rec, "instance 1 never ran two requests 4 tokens in")
+    streams = streams_of(done)
+    require(all(streams[m] == base[m] for m in rec["requests"]),
+            "a rolled-back request's stream left the fault-free run's")
+    rec["bf16_streams_diverged_from_fault_free"] = divergences(streams, base)
+    rec["wall_s"] = wall
+    release_pools()
+    return rec
+
+
+def fence_spans(events, t0: float, t1: float) -> dict:
+    """Each instance's fenced time inside [t0, t1] as merged spans, from
+    the dispatcher's oom-fence events."""
+    raw = {}
+    for e in events:
+        if e.kind == "oom-fence":
+            raw.setdefault(e.instance_id, []).append(
+                (max(e.ts, t0), min(e.data["until"], t1)))
+    out = {}
+    for iid, spans in raw.items():
+        merged = []
+        for a, b in sorted(spans):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            elif b > a:
+                merged.append([a, b])
+        out[iid] = merged
+    return out
+
+
+def ov_workflow(model, params, seed: int, vocab: int) -> dict:
+    """Part 6: the workflow phase's QA burst on pools of OV_WF_BLOCKS,
+    under an oom storm planned on both instances at once, with the
+    dispatcher's OOM feedback and without."""
+    from repro_torch.serving import FaultPlan, FaultSpec
+    plan = FaultPlan([FaultSpec("oom", i, s) for i in (0, 1)
+                      for s in OV_WF_OOM_STEPS])
+    out = {"num_blocks": OV_WF_BLOCKS, "tasks": WF_TASKS,
+           "plan": [dataclasses.astuple(s) for s in plan]}
+    for key, feedback in (("oom_feedback", True), ("no_oom_feedback", False)):
+        wf, ids, results, _, t0, wall, totals, _ = run_workflow(
+            model, params, seed, WF_TASKS,
+            config=dict(WF_CONFIG, num_blocks=OV_WF_BLOCKS),
+            cluster_kwargs=dict(faults=plan, oom_feedback=feedback))
+        rep = workflow_report(wf, ids, results, t0, wall, vocab, totals)
+        iters = sum(i["iterations"] for i in rep["instances"].values())
+        require(iters <= OV_WF_ITERATION_BUDGET,
+                f"{iters} engine iterations for the burst")
+        require(wf.cluster.faults.n_fired == len(plan),
+                f"{wf.cluster.faults.n_fired} of {len(plan)} ooms fired")
+        spans = fence_spans(wf.tracer.events(), t0, t0 + wall)
+        both = 0.0
+        for a0, a1 in spans.get(0, []):
+            for b0, b1 in spans.get(1, []):
+                both += max(0.0, min(a1, b1) - max(a0, b0))
+        out[key] = {
+            "wall_s": wall, "e2e_median_s": rep["e2e_median_s"],
+            "e2e_p90_s": rep["e2e_p90_s"], "per_agent": rep["per_agent"],
+            "engine_iterations": iters,
+            "cluster_steps": rep["host_s_by_part"]["cluster_step"]["calls"],
+            "instances": {
+                label: {"n_preempted": inst["n_preempted"],
+                        "iterations": inst["iterations"],
+                        "oom_fences": len(spans.get(int(label[6:]), [])),
+                        "fenced_s": sum(b - a for a, b in spans.get(
+                            int(label[6:]), []))}
+                for label, inst in rep["instances"].items()},
+            "both_fenced_s": both}
+        del wf
+        release_pools()
+    require(any(i["oom_fences"] for i in out["oom_feedback"][
+        "instances"].values()), "the oom storm fenced nothing")
+    require(not any(i["oom_fences"] for i in out["no_oom_feedback"][
+        "instances"].values()), "a fence without OOM feedback")
+    return out
+
+
+def phase_overload(state, seed: int):
+    from repro_torch import serving
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_attention import ragged_segment_attention
+    from repro_torch.obs import Tracer
+    release_pools()
+    cfg = full_config()
+    vocab = cfg.vocab_size
+    t0 = time.perf_counter()
+    pool, schedules = ov_pool(seed, vocab)
+    replay_s = time.perf_counter() - t0
+    replay = schedules[f"new_{OV_NEW}"][pool]
+    model, params = served(cfg, seed)
+    # warm-up: one request through an engine, and a small pipelined
+    # cluster (each dispatch thread's cuBLAS handle, the allocator)
+    drain(engine_for(runner_for(model, params, num_blocks=pool)),
+          (make_requests(serving, seed + 1, vocab)[0][:1], []))
+    cluster_run(el_cluster(model, params, **OV_CHAOS),
+                chaos_requests(serving, seed + 1, vocab)[:3])
+    release_pools()
+    tracer = Tracer()
+    out = {"model": "qwen3-1.7b", "layers": cfg.num_layers,
+           "dtype": cfg.dtype, "card": state["smi"], "pool_blocks": pool,
+           "host_schedule_replays": schedules,
+           "host_schedule_replays_s": replay_s,
+           "drain_phase_4096_blocks_32_new_tokens": state.get(
+               "drain_summary")}
+    paged_attention.launches = 0
+    ragged_segment_attention.launches = 0
+    out["preempting_drain"] = ov_preempting_drains(model, params, seed,
+                                                   vocab, pool, replay)
+    out["chaos"], base, (plan, deadline) = ov_chaos(model, params, seed,
+                                                    vocab, tracer)
+    out["failed_transfer"] = ov_transfer(model, params, seed, vocab, base)
+    out["memory_aware_dispatch"] = ov_workflow(model, params, seed, vocab)
+    launches = {"paged_attention": paged_attention.launches,
+                "ragged_segment_attention": ragged_segment_attention.launches}
+    state["overload_launches"] = launches
+    require(min(launches.values()) > 0, f"a kernel never launched: {launches}")
+    out["kernel_launches"] = launches
+    del model, params
+    release_pools()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    model32, params32 = served(cfg32, seed)
+    out["identity"] = ov_identity(model32, params32, seed, vocab, pool,
+                                  replay, tracer)
+    out["chaos"]["float32"] = ov_chaos_float32(model32, params32, seed,
+                                               vocab, plan, deadline)
+    export = el_export(tracer)
+    missing = {"preempt", "evict", "failure-detected", "recovery-replay",
+               "oom-fence", "fault-injected"} - set(export["by_kind"])
+    require(not missing, f"the trace lacks {sorted(missing)}")
+    out["export"] = export
+    return out
+
+
 def kernels_line(state):
     """One row per kernel.  ``launches`` counts the MoE drain's fused
     path (phase 7), and the times, bound and error are at its shape (KV
     16, G 1, hd 128; 16 decode sequences at contexts 256-4096, 4 chunks
     of 512), bf16.  ``launches_by_path`` holds every phase's count, the
     training and dry-run phases' 0 included (they run the model-level
-    attention), and the tensor-parallel phase's, summed over its ranks.
-    ``by_shape`` holds the qwen3-1.7b shape and the other served head
-    shapes."""
+    attention), the tensor-parallel phase's, summed over its ranks, and
+    the overload phase's bf16 runs.  ``by_shape`` holds the qwen3-1.7b
+    shape and the other served head shapes."""
     rows = []
     for name, src, replaces, bodies in (
             ("paged_attention", PAGED_SRC,
@@ -3332,7 +4134,8 @@ def kernels_line(state):
                 "families": state["families_launches"][name],
                 "train": state["train_launches"][name],
                 "dryrun": state["dryrun_launches"][name],
-                "tensor_parallel": state["tp_launches"][name]},
+                "tensor_parallel": state["tp_launches"][name],
+                "overload": state["overload_launches"][name]},
             "max_abs_err":
                 state["shape_errs"]["qwen2-moe"][f"{short}_bfloat16_full"],
             "ms": t["kernel_ms"], "plain_ms": t["ref_ms"],
@@ -3400,7 +4203,8 @@ def main(argv=None) -> int:
               ("train", lambda: phase_train(state, args.seed)),
               ("dryrun", lambda: phase_dryrun(state, args.seed)),
               ("tensor_parallel",
-               lambda: phase_tensor_parallel(state, args.seed)))
+               lambda: phase_tensor_parallel(state, args.seed)),
+              ("overload", lambda: phase_overload(state, args.seed)))
     for name, run in phases:
         t0 = time.perf_counter()
         try:

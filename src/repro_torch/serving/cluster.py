@@ -415,11 +415,17 @@ class ServingCluster:
                 futures = [self._pool.submit(self._dispatch_one, e)
                            for e in group]
                 for e, f in zip(group, futures):
-                    try:
-                        f.result()
-                    except InstanceCrashed:
+                    # read the worker's exception rather than re-raise it
+                    # here: re-raised, its traceback would hold this frame,
+                    # whose futures hold the exception — a cycle that
+                    # keeps a crashed engine and its pool alive until the
+                    # collector runs
+                    err = f.exception()
+                    if isinstance(err, InstanceCrashed):
                         finished.extend(self.recovery.on_crash(self, e, now))
                         continue
+                    if err is not None:
+                        raise err
                     finished.extend(self._collect(e, now))
                     self.recovery.check_step_deadline(
                         self, e, e.last_step_wall, now)

@@ -861,7 +861,11 @@ class LLMEngine:
             matcher=TokenPrefixMatcher(), max_running=max_batch,
             max_batch=runner.max_batch,
             prefill_chunk_tokens=prefill_chunk_tokens,
-            on_preempt=lambda r: self._next_tok.pop(r.req_id, None),
+            # bound to the token map, not to the engine: no reference
+            # cycle, so a discarded engine (and its pool) is freed as soon
+            # as the last reference to it goes, without the collector
+            on_preempt=lambda r, toks=self._next_tok: toks.pop(r.req_id,
+                                                                 None),
             tracer=tracer, instance_id=instance_id, role=role)
 
     @classmethod

@@ -553,6 +553,118 @@ def test_cuda_migrate_many_between_two_engines(cuda):
     assert out == base
 
 
+# =============================================================================
+# excessive load and faults
+# =============================================================================
+
+
+def _overload_reqs(max_new):
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, 500, 16)
+    return [serving.Request(
+        agent_name="a", msg_id=f"m{i}", prompt_len=21 + i,
+        prompt_tokens=np.concatenate(
+            [prefix, rng.integers(0, 500, 5 + i)]).astype(np.int32),
+        max_new_tokens=max_new) for i in range(6)]
+
+
+@pytest.mark.cuda
+def test_cuda_tight_pool_eos_drain_matches_ref(cuda):
+    """A pool tight enough to preempt, with ``eos_token`` set: the CUDA
+    kernels drain token-identically to the plain versions on the card
+    (reduced qwen3-1.7b, fp32), and every stream is the run without EOS
+    cut before its first ``eos_token`` past the first token."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="float32")
+    model = LanguageModel(cfg)
+    params = model.init_params(torch.Generator(cuda).manual_seed(0), cuda)
+
+    def run(backend, eos):
+        serving.reset_request_ids()
+        runner = serving.PagedModelRunner(model, params, num_blocks=12,
+                                          block_size=8, max_batch=4,
+                                          backend=backend, device=cuda)
+        eng = serving.LLMEngine(runner, max_batch=4, enable_prefix_cache=True,
+                                prefill_chunk_tokens=8, eos_token=eos)
+        for q in _overload_reqs(16):
+            eng.submit(q)
+        done = eng.run_until_drained(4000)
+        assert len(done) == 6
+        return eng, {r.msg_id: [int(t) for t in r.output_tokens]
+                     for r in done}
+
+    eng, plain = run("cuda", -1)
+    assert eng.stats.n_preempted > 0, "the pool must preempt"
+    stops = {}
+    for s in plain.values():
+        for t in set(s[1:]):
+            stops[t] = stops.get(t, 0) + 1
+    eos = min(stops, key=lambda t: (-stops[t], t))
+    assert stops[eos] >= 2, "no token stops two streams early"
+
+    def cut(s):
+        return next((s[:i] for i in range(1, len(s)) if s[i] == eos), s)
+
+    _, got = run("cuda", eos)
+    _, want = run("ref", eos)
+    assert got == want
+    assert got == {m: cut(s) for m, s in plain.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_failed_transfer_rolls_back_bit_equal(cuda):
+    """A planned transfer fault inside ``migrate_many`` on the card (bf16
+    pools): the requests run on their source again, the target's free
+    blocks are as before the call, the source's blocks read back with the
+    same bits, and the streams equal a drain with no migration."""
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = LanguageModel(cfg)
+    params = model.init_params(torch.Generator(cuda).manual_seed(0), cuda)
+
+    def engine(iid):
+        r = serving.PagedModelRunner(model, params, num_blocks=64,
+                                     block_size=8, max_batch=4, device=cuda)
+        return serving.LLMEngine(r, instance_id=iid, max_batch=4,
+                                 enable_prefix_cache=True)
+
+    def streams(done):
+        return {r.msg_id: [int(t) for t in r.output_tokens] for r in done}
+
+    serving.reset_request_ids()
+    base_engine = engine(0)
+    for q in _overload_reqs(12):
+        base_engine.submit(q)
+    base = streams(base_engine.run_until_drained(4000))
+    serving.reset_request_ids()
+    e0, e1 = engine(0), engine(1)
+    for q in _overload_reqs(12):
+        e0.submit(q)
+    done = []
+    for _ in range(4):
+        done.extend(e0.step())
+    batch = list(e0.sched.running)
+
+    def blocks(r):
+        table = e0.bm.block_table(r.req_id)
+        return e0.runner.read_blocks(table[:e0.bm.blocks_needed(
+            r.prefilled_len + r.output_len)])
+
+    before = [blocks(r) for r in batch]
+    free = e1.bm.free_blocks
+    faults = serving.FaultInjector(serving.FaultPlan(
+        [serving.FaultSpec("transfer", 0, 0)]))
+    with pytest.raises(serving.MigrationError) as err:
+        serving.migrate_many(e0, e1, batch, faults=faults)
+    assert isinstance(err.value.__cause__, serving.TransferFault)
+    assert e1.bm.free_blocks == free and not e1.sched.running
+    assert all(r in e0.sched.running for r in batch)
+    for r, kv in zip(batch, before):
+        assert kv.dtype == np.uint16
+        np.testing.assert_array_equal(blocks(r), kv)
+    done.extend(e0.run_until_drained(4000))
+    assert streams(done) == base
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2-moe-a2.7b"])
 def test_cuda_loss_and_grads_match_cpu(cuda, arch):
