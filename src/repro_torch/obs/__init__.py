@@ -4,6 +4,7 @@ from repro_torch.obs.trace import (
     NULL_TRACER,
     Event,
     NullTracer,
+    Span,
     TraceContext,
     Tracer,
 )
@@ -39,7 +40,7 @@ from repro_torch.obs.export import (
 )
 
 __all__ = [
-    "EVENT_KINDS", "NULL_TRACER", "Event", "NullTracer", "TraceContext",
+    "EVENT_KINDS", "NULL_TRACER", "Event", "NullTracer", "Span", "TraceContext",
     "Tracer",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "merge_snapshots",
     "rollup_by_role",

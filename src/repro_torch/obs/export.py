@@ -10,6 +10,14 @@ kinds (preempt, evict, oom-fence, migrate-candidate, iteration) become
 "i" instants.  Timestamps are microseconds, rebased to the earliest
 event so traces start at t=0.
 
+Spans (``trace.Span``) become "X" events on one track per thread: the
+control plane's thread ("control", in the control-plane process) and each
+engine's dispatch thread ("dispatch-<i>", in engine *i*'s process).  They
+are placed by their ``time.time_ns()`` ends, and ``otherData`` states
+``zero_time_ns``, the ``time_ns`` of the rebased zero: shifted by it, the
+trace lies beside ``torch.profiler``'s ``export_chrome_trace`` in one
+Perfetto view.
+
 ``events_to_dicts`` / ``events_from_dicts`` are the loss-free plain-dict
 round-trip (the sim and tests use it); ``validate_chrome_trace`` is the
 schema check the export test and CI artifact step run.
@@ -19,7 +27,7 @@ from __future__ import annotations
 import json
 from typing import Dict, Iterable, List
 
-from repro_torch.obs.trace import EVENT_KINDS, Event
+from repro_torch.obs.trace import EVENT_KINDS, Event, Span
 
 # kinds rendered as instant markers rather than span edges
 _INSTANT_KINDS = ("preempt", "evict", "oom-fence", "migrate-candidate",
@@ -27,6 +35,9 @@ _INSTANT_KINDS = ("preempt", "evict", "oom-fence", "migrate-candidate",
 
 # chrome://tracing rejects pid/tid < 0; shift so control plane (-1) = 0
 _PID_OFF = 1
+
+# the spans' thread tracks take a tid no request takes
+_THREAD_TID = 1 << 30
 
 
 def _us(ts: float, t0: float) -> float:
@@ -52,11 +63,7 @@ def to_chrome_trace(events: Iterable[Event], *, dropped: int = 0) -> dict:
     tids_named: Dict[tuple, bool] = {}
 
     def meta(pid: int, tid: int, agent: str, req_id: int):
-        if pid not in pids_named:
-            pids_named[pid] = True
-            name = "control-plane" if pid == 0 else f"engine{pid - _PID_OFF}"
-            out.append({"name": "process_name", "ph": "M", "pid": pid,
-                        "args": {"name": name}})
+        _name_process(pid, pids_named, out)
         if (pid, tid) not in tids_named:
             tids_named[(pid, tid)] = True
             label = f"req{req_id}" + (f" [{agent}]" if agent else "")
@@ -117,10 +124,49 @@ def to_chrome_trace(events: Iterable[Event], *, dropped: int = 0) -> dict:
                     "args": {k: v for k, v in e.data.items()
                              if isinstance(v, (int, float, str))}})
 
+    other = {"dropped_events": dropped} if dropped else {}
+    spans = [e for e in events if e.kind == "span"]
+    if spans:
+        other["zero_time_ns"] = _thread_tracks(spans, t0, out, pids_named)
     trace = {"traceEvents": out, "displayTimeUnit": "ms"}
-    if dropped:
-        trace["otherData"] = {"dropped_events": dropped}
+    if other:
+        trace["otherData"] = other
     return trace
+
+
+def _name_process(pid: int, named: Dict[int, bool], out: List[dict]):
+    if pid not in named:
+        named[pid] = True
+        name = "control-plane" if pid == 0 else f"engine{pid - _PID_OFF}"
+        out.append({"name": "process_name", "ph": "M", "pid": pid,
+                    "args": {"name": name}})
+
+
+def _thread_tracks(spans: List[Span], t0: float, out: List[dict],
+                   pids_named: Dict[int, bool]) -> int:
+    """Append ``spans`` as X events on their threads' tracks; returns the
+    ``time_ns`` of the trace's zero (``t0`` on the tracer's clock), read
+    off the earliest span's two starts."""
+    first = min(spans, key=lambda s: s.start_ns)
+    zero_ns = first.start_ns - round((first.ts - t0) * 1e9)
+    control = {s.thread for s in spans if s.instance_id < 0}
+    named = set()
+    for s in spans:
+        if s.thread in control:
+            pid, label = 0, "control"
+        else:
+            pid, label = s.instance_id + _PID_OFF, f"dispatch-{s.instance_id}"
+        if pid not in named:
+            named.add(pid)
+            _name_process(pid, pids_named, out)
+            out.append({"name": "thread_name", "ph": "M", "pid": pid,
+                        "tid": _THREAD_TID, "args": {"name": label}})
+        out.append({"name": s.name, "ph": "X", "pid": pid,
+                    "tid": _THREAD_TID, "ts": (s.start_ns - zero_ns) / 1e3,
+                    "dur": s.wall_ns / 1e3, "cat": "span",
+                    "args": {"iteration": s.iteration, "cpu_us":
+                             s.cpu_ns / 1e3, "instance": s.instance_id}})
+    return zero_ns
 
 
 def write_chrome_trace(path: str, events: Iterable[Event], *,
@@ -167,5 +213,5 @@ def events_from_dicts(dicts: Iterable[dict]) -> List[Event]:
     out = []
     for d in dicts:
         assert d["kind"] in EVENT_KINDS, f"unknown event kind {d['kind']!r}"
-        out.append(Event(**d))
+        out.append(Span(**d) if d["kind"] == "span" else Event(**d))
     return out

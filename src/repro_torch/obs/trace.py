@@ -75,11 +75,38 @@ Event taxonomy (``kind``):
 ``shed``                the overload valve dropped a request judged unable
                         to meet its deadline (``data['slack']``,
                         ``['queued']`` = balancer depth at shed time)
+``span``                a timed stretch of one thread's work
+                        (:class:`Span`, recorded when it ends by
+                        :meth:`Tracer.end`): ``name`` says which
 ======================  =====================================================
+
+Spans (the real path only; the fused iteration of a cluster step):
+
+=====================  ========  ==============================================
+``cluster.step``       control   ``ServingCluster.step`` (ring ``-1``)
+``balancer.tick``      control   the step's ``LoadBalancer.tick`` (ring ``-1``)
+``engine.dispatch``    worker    ``LLMEngine.dispatch_iteration`` (``iteration``
+                                 -1 when nothing was planned; its batch's
+                                 counts are the ``iteration`` event inside it)
+``sched.plan``         worker    the batch scheduler's ``plan``
+``engine.flatten``     worker    ``flatten_plan``
+``runner.upload``      worker    ``run_iteration``'s concatenation, pin and
+                                 host-to-device copy
+``runner.launch``      worker    ``_step``: every launch of the step
+``engine.sync``        worker    ``LLMEngine.sync``
+``engine.collect``     control   ``LLMEngine.collect``
+=====================  ========  ==============================================
+
+"worker" is the cluster's dispatch thread of the engine in pipelined mode
+(the control thread otherwise).  Every span but the control plane's lands
+on its engine's ring.  Each site closes its span in a ``finally``, so an
+exception leaves no span open on its thread.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import threading
 import time
 from typing import Dict, List, NamedTuple, Optional
 
@@ -89,7 +116,7 @@ EVENT_KINDS = (
     "handoff-start", "handoff-complete", "scale-up", "scale-down",
     "finish",
     "fault-injected", "failure-detected", "recovery-replay",
-    "handoff-strand", "shed",
+    "handoff-strand", "shed", "span",
 )
 
 
@@ -104,6 +131,57 @@ class Event(NamedTuple):
     agent: str
     msg_id: str
     data: dict
+
+
+class Span(NamedTuple):
+    """One timed stretch of one thread's work, recorded when it ends.
+
+    Its first seven fields are an :class:`Event`'s, so it sorts, windows
+    and filters with the events: ``ts`` is its start on the tracer's
+    ``clock``, ``kind`` is ``"span"``, ``req_id`` -1, ``data`` empty.
+    ``start_ns`` / ``end_ns`` are the same two ends on ``time.time_ns()``,
+    the clock of ``torch.profiler``'s trace; ``cpu_ns`` is the thread CPU
+    time between them (``time.thread_time_ns()``), so ``wall - cpu_ns`` is
+    the time the thread was blocked or waited to be scheduled.  ``parent`` is the ``span_id`` of the span that
+    enclosed it on the same thread (-1 for none); ``iteration`` the engine
+    iteration it served (-1 for none), shared by the spans of one
+    iteration as ``req_id`` is by the events of one request."""
+    ts: float
+    kind: str
+    req_id: int
+    instance_id: int
+    agent: str
+    msg_id: str
+    data: dict
+    name: str
+    end: float
+    start_ns: int
+    end_ns: int
+    cpu_ns: int
+    span_id: int
+    parent: int
+    iteration: int
+    thread: int
+
+    @property
+    def wall_ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+
+class OpenSpan:
+    """A span between :meth:`Tracer.begin` and :meth:`Tracer.end`.  Its
+    ``iteration`` may be set while it is open; spans begun inside it then
+    inherit it."""
+
+    __slots__ = ("name", "instance_id", "span_id", "parent", "iteration",
+                 "thread", "ts", "start_ns", "cpu_ns")
+
+    def __init__(self, name, instance_id, span_id, parent, iteration,
+                 thread, ts, start_ns, cpu_ns):
+        self.name, self.instance_id = name, instance_id
+        self.span_id, self.parent, self.iteration = span_id, parent, iteration
+        self.thread, self.ts = thread, ts
+        self.start_ns, self.cpu_ns = start_ns, cpu_ns
 
 
 @dataclasses.dataclass
@@ -162,20 +240,60 @@ class Tracer:
         self.capacity = capacity_per_instance
         self.clock = clock
         self._rings: Dict[int, _Ring] = {}
+        self._span_ids = itertools.count()
+        self._open = threading.local()      # per thread: its open spans
 
-    # ------------------------------------------------------------------ emit
-    def emit(self, kind: str, req_id: int = -1, instance_id: int = -1,
-             agent: str = "", msg_id: str = "",
-             ts: Optional[float] = None, **data):
-        assert kind in EVENT_KINDS, f"unknown event kind {kind!r}"
+    def _ring(self, instance_id: int) -> _Ring:
         ring = self._rings.get(instance_id)
         if ring is None:
             # setdefault: first-emit race between two instance threads
             # can only ever target *different* keys (rings are
             # per-instance single-writer), so this is belt-and-braces
             ring = self._rings.setdefault(instance_id, _Ring(self.capacity))
-        ring.append(Event(self.clock() if ts is None else ts, kind,
-                          req_id, instance_id, agent, msg_id, data))
+        return ring
+
+    # ------------------------------------------------------------------ emit
+    def emit(self, kind: str, req_id: int = -1, instance_id: int = -1,
+             agent: str = "", msg_id: str = "",
+             ts: Optional[float] = None, **data):
+        assert kind in EVENT_KINDS, f"unknown event kind {kind!r}"
+        self._ring(instance_id).append(
+            Event(self.clock() if ts is None else ts, kind, req_id,
+                  instance_id, agent, msg_id, data))
+
+    # ----------------------------------------------------------------- spans
+    def begin(self, name: str, instance_id: int = -1) -> OpenSpan:
+        """Open a span on this thread, inside the thread's innermost open
+        span (its parent, whose ``iteration`` it inherits).  Guard the
+        call as an emit, ``sp = tr.begin(...) if tr.enabled else None``,
+        and end the span in a ``finally``: a span left open stays the
+        parent of every later span on its thread."""
+        stack = getattr(self._open, "stack", None)
+        if stack is None:
+            stack = self._open.stack = []
+        top = stack[-1] if stack else None
+        sp = OpenSpan(name, instance_id, next(self._span_ids),
+                      -1 if top is None else top.span_id,
+                      -1 if top is None else top.iteration,
+                      threading.get_ident(), self.clock(), time.time_ns(),
+                      time.thread_time_ns())
+        stack.append(sp)
+        return sp
+
+    def end(self, sp: OpenSpan, iteration: Optional[int] = None):
+        """Close ``sp`` (on the thread that opened it) and record it on
+        its instance's ring.  Spans opened inside it and left open (an
+        exception skipped their end) are dropped, unrecorded."""
+        cpu, ns, t = time.thread_time_ns(), time.time_ns(), self.clock()
+        stack = self._open.stack
+        while stack and stack.pop() is not sp:
+            pass
+        if iteration is not None:
+            sp.iteration = iteration
+        self._ring(sp.instance_id).append(Span(
+            sp.ts, "span", -1, sp.instance_id, "", "", {}, sp.name, t,
+            sp.start_ns, ns, cpu - sp.cpu_ns, sp.span_id, sp.parent,
+            sp.iteration, sp.thread))
 
     # ----------------------------------------------------------------- views
     def events(self, instance_id: Optional[int] = None) -> List[Event]:
@@ -216,6 +334,12 @@ class NullTracer(Tracer):
         super().__init__(capacity_per_instance=1)
 
     def emit(self, *a, **kw):  # pragma: no cover - trivially nothing
+        pass
+
+    def begin(self, *a, **kw):  # pragma: no cover - guarded call sites
+        return None
+
+    def end(self, *a, **kw):  # pragma: no cover - guarded call sites
         pass
 
 

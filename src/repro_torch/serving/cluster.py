@@ -390,61 +390,57 @@ class ServingCluster:
         legal transfer point), requests that completed prefill on a
         prefill-role instance are handed to decode-capable instances
         (``serving/handoff.py``), one gathered ``write_blocks`` per
-        (source, target) batch."""
-        now = self.clock() if now is None else now
-        finished: List[Request] = []
-        if self._shed_at_submit:
-            # requests shed at the submit door surface here so callers
-            # waiting on step() results unblock
-            finished.extend(self._shed_at_submit)
-            self._shed_at_submit.clear()
-        self.recovery.tick(self, now)
-        if self.autoscaler is not None:
-            # engines are synced between steps, which is exactly when
-            # live migration (scale-down drain) is legal
-            finished.extend(self.autoscaler.step(self, now))
-        if self.shedder is not None:
-            finished.extend(self._shed_sweep(now))
-        self.balancer.tick(now)
-        for group in self._role_groups():
-            if self.pipelined and len(group) > 1:
-                if self._pool is None:
-                    self._pool = ThreadPoolExecutor(
-                        max_workers=len(self.engines),
-                        thread_name_prefix="cluster-dispatch")
-                futures = [self._pool.submit(self._dispatch_one, e)
-                           for e in group]
-                for e, f in zip(group, futures):
-                    # read the worker's exception rather than re-raise it
-                    # here: re-raised, its traceback would hold this frame,
-                    # whose futures hold the exception — a cycle that
-                    # keeps a crashed engine and its pool alive until the
-                    # collector runs
-                    err = f.exception()
-                    if isinstance(err, InstanceCrashed):
-                        finished.extend(self.recovery.on_crash(self, e, now))
-                        continue
-                    if err is not None:
-                        raise err
-                    finished.extend(self._collect(e, now))
-                    self.recovery.check_step_deadline(
-                        self, e, e.last_step_wall, now)
-            elif self.pipelined:
-                # single engine: nothing to overlap across instances —
-                # skip the worker handoff, keep the deferred host sync
-                e = group[0]
-                try:
-                    t0 = time.monotonic()
-                    e.dispatch_iteration()
-                    e.last_step_wall = time.monotonic() - t0
-                except InstanceCrashed:
-                    finished.extend(self.recovery.on_crash(self, e, now))
-                    continue
-                finished.extend(self._collect(e, now))
-                self.recovery.check_step_deadline(
-                    self, e, e.last_step_wall, now)
-            else:
-                for e in group:
+        (source, target) batch.  Traced, the step is a ``cluster.step``
+        span on the control plane's ring, around a ``balancer.tick`` span
+        (here, not in the balancer, which the simulator shares)."""
+        tr = self.tracer
+        sp = tr.begin("cluster.step") if tr.enabled else None
+        try:
+            now = self.clock() if now is None else now
+            finished: List[Request] = []
+            if self._shed_at_submit:
+                # requests shed at the submit door surface here so callers
+                # waiting on step() results unblock
+                finished.extend(self._shed_at_submit)
+                self._shed_at_submit.clear()
+            self.recovery.tick(self, now)
+            if self.autoscaler is not None:
+                # engines are synced between steps, which is exactly when
+                # live migration (scale-down drain) is legal
+                finished.extend(self.autoscaler.step(self, now))
+            if self.shedder is not None:
+                finished.extend(self._shed_sweep(now))
+            tsp = tr.begin("balancer.tick") if sp is not None else None
+            self.balancer.tick(now)
+            if tsp is not None:
+                tr.end(tsp)
+            for group in self._role_groups():
+                if self.pipelined and len(group) > 1:
+                    if self._pool is None:
+                        self._pool = ThreadPoolExecutor(
+                            max_workers=len(self.engines),
+                            thread_name_prefix="cluster-dispatch")
+                    futures = [self._pool.submit(self._dispatch_one, e)
+                               for e in group]
+                    for e, f in zip(group, futures):
+                        # read the worker's exception rather than re-raise it
+                        # here: re-raised, its traceback would hold this frame,
+                        # whose futures hold the exception — a cycle that
+                        # keeps a crashed engine and its pool alive until the
+                        # collector runs
+                        err = f.exception()
+                        if isinstance(err, InstanceCrashed):
+                            finished.extend(self.recovery.on_crash(self, e, now))
+                            continue
+                        if err is not None:
+                            raise err
+                        finished.extend(self._collect(e, now))
+                        self.recovery.check_step_deadline(
+                            self, e, e.last_step_wall, now)
+                elif self.pipelined:
+                    # single engine: nothing to overlap across instances —
+                    # skip the worker handoff, keep the deferred host sync
+                    e = group[0]
                     try:
                         t0 = time.monotonic()
                         e.dispatch_iteration()
@@ -452,30 +448,45 @@ class ServingCluster:
                     except InstanceCrashed:
                         finished.extend(self.recovery.on_crash(self, e, now))
                         continue
-                    finished.extend(self._collect(e, now, force_sync=True))
+                    finished.extend(self._collect(e, now))
                     self.recovery.check_step_deadline(
                         self, e, e.last_step_wall, now)
-        if any(e.role == "prefill" for e in self.engines):
-            from repro_torch.serving.handoff import drive_handoffs
-            hs = drive_handoffs(self, now)
-            self.n_handoffs += hs["n_handoffs"]
-            self.handoff_bytes += hs["handoff_bytes"]
-            self.handoff_dispatches += hs["handoff_dispatches"]
-            self.n_stranded += hs["n_stranded"]
-            self.n_strand_retries += hs["n_strand_retries"]
-            for e in self.engines:
-                if e.role != "decode" or not e.sched.waiting:
-                    continue
-                # a decode instance's waiting queue can only hold requests
-                # it preempted (admission is adopt-only), and its role gate
-                # would never re-admit them: recompute belongs on a
-                # prefill-capable instance, so route them back through the
-                # balancer (preemption already reset their phase)
-                for req in list(e.sched.waiting):
-                    e.sched.release(req)
-                    self.dispatcher.on_finish(e.instance_id, req.req_id)
-                    self.balancer.enqueue(req)
-        return finished
+                else:
+                    for e in group:
+                        try:
+                            t0 = time.monotonic()
+                            e.dispatch_iteration()
+                            e.last_step_wall = time.monotonic() - t0
+                        except InstanceCrashed:
+                            finished.extend(self.recovery.on_crash(self, e, now))
+                            continue
+                        finished.extend(self._collect(e, now, force_sync=True))
+                        self.recovery.check_step_deadline(
+                            self, e, e.last_step_wall, now)
+            if any(e.role == "prefill" for e in self.engines):
+                from repro_torch.serving.handoff import drive_handoffs
+                hs = drive_handoffs(self, now)
+                self.n_handoffs += hs["n_handoffs"]
+                self.handoff_bytes += hs["handoff_bytes"]
+                self.handoff_dispatches += hs["handoff_dispatches"]
+                self.n_stranded += hs["n_stranded"]
+                self.n_strand_retries += hs["n_strand_retries"]
+                for e in self.engines:
+                    if e.role != "decode" or not e.sched.waiting:
+                        continue
+                    # a decode instance's waiting queue can only hold requests
+                    # it preempted (admission is adopt-only), and its role gate
+                    # would never re-admit them: recompute belongs on a
+                    # prefill-capable instance, so route them back through the
+                    # balancer (preemption already reset their phase)
+                    for req in list(e.sched.waiting):
+                        e.sched.release(req)
+                        self.dispatcher.on_finish(e.instance_id, req.req_id)
+                        self.balancer.enqueue(req)
+            return finished
+        finally:
+            if sp is not None:
+                tr.end(sp)
 
     @staticmethod
     def _dispatch_one(e: LLMEngine):

@@ -234,6 +234,10 @@ class PagedModelRunner:
         # write_blocks
         self.metrics = MetricsRegistry()
         self.n_dispatches = 0
+        # the engine that drives this runner sets these: its spans go to
+        # the engine's ring
+        self.tracer: Tracer = NULL_TRACER
+        self.instance_id = -1
 
     def _new_pool(self) -> None:
         """Fresh zeroed pool of this shard's KV heads, with the spare
@@ -577,6 +581,7 @@ class PagedModelRunner:
             c._new_pool()
         c.metrics = MetricsRegistry()
         c.n_dispatches = 0
+        c.tracer, c.instance_id = self.tracer, self.instance_id
         return c
 
     def shutdown(self) -> None:
@@ -632,7 +637,10 @@ class PagedModelRunner:
         copy from pinned memory, nothing here waits on the device, and
         the caller syncs (one transfer) when it consumes the tokens.  A
         sharded runner first posts the batch's one flat int32 buffer to
-        its followers."""
+        its followers.  Traced, the call is two spans: ``runner.upload``
+        up to the device copy's enqueue, ``runner.launch`` the step."""
+        tr = self.tracer
+        sp = tr.begin("runner.upload", self.instance_id) if tr.enabled else None
         self.n_dispatches += 1
         arrays = [np.asarray(getattr(batch, f), np.int32)
                   for f in _BATCH_FIELDS]
@@ -640,11 +648,22 @@ class PagedModelRunner:
         self._called("fused", *shapes)
         flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
         self._post(Op.FUSED, *_shape_words(shapes), payload=flat)
-        return self._fused(flat, shapes)
+        return self._fused(flat, shapes, sp)
 
-    def _fused(self, flat: torch.Tensor, shapes):
-        out = (self._step(*self._upload(flat, shapes))
-               if self._holds_shard else None)
+    def _fused(self, flat: torch.Tensor, shapes, sp=None):
+        """Upload and step; ``sp``, an open ``runner.upload`` span, ends at
+        the upload, and ``runner.launch`` times the step."""
+        out = None
+        try:
+            if self._holds_shard:
+                args = self._upload(flat, shapes)
+                if sp is not None:
+                    self.tracer.end(sp)
+                    sp = self.tracer.begin("runner.launch", self.instance_id)
+                out = self._step(*args)
+        finally:
+            if sp is not None:
+                self.tracer.end(sp)
         return self._result(out, shapes[_SAMPLE_ROWS], torch.int32)
 
     def _upload(self, flat: torch.Tensor, shapes) -> List[torch.Tensor]:
@@ -849,6 +868,9 @@ class LLMEngine:
         self.eos_token = eos_token
         self.clock = clock
         self.tracer = tracer
+        runner.tracer, runner.instance_id = tracer, instance_id
+        # iterations issued; the last one's number is n_iterations - 1
+        self.n_iterations = 0
         self._next_tok: dict[int, int] = {}
         # fault plane (serving/faults.py): wired by the cluster; when set,
         # every composed iteration consults the injector mid-dispatch
@@ -980,87 +1002,117 @@ class LLMEngine:
         True iff an iteration was issued.  On the legacy per-chunk path
         there is no single step to defer; the iteration executes
         synchronously here and ``collect`` just hands back its
-        finishers."""
+        finishers.  Traced, the call is an ``engine.dispatch`` span around
+        ``sched.plan``, ``engine.flatten`` and the runner's spans."""
         assert not self.has_pending, "collect() the previous iteration first"
-        plan = self.sched.plan(self.clock())
-        if plan is None:
-            return False
-        if self.faults is not None:
-            # mid-dispatch fault point: the plan has already mutated
-            # scheduler state (chunk bookkeeping, decode growth), which is
-            # exactly what a real worker death leaves behind.  Non-crash
-            # effects land first so a storm of ooms still fences.
-            eff = self.faults.on_dispatch(self.instance_id)
-            if eff.oom:
-                self.sched.stats.recent_oom = True
-            if eff.delay_s > 0.0:
-                time.sleep(eff.delay_s)
-            if eff.crash is not None:
-                raise InstanceCrashed(self.instance_id, eff.crash.step)
-        if not self.fused_iteration:
-            self._pending_finished = self._execute_per_chunk(plan)
+        tr = self.tracer
+        sp = tr.begin("engine.dispatch", self.instance_id) if tr.enabled else None
+        try:
+            if sp is not None:
+                psp = tr.begin("sched.plan", self.instance_id)
+            plan = self.sched.plan(self.clock())
+            if sp is not None:
+                sp.iteration = -1 if plan is None else self.n_iterations
+                tr.end(psp, iteration=sp.iteration)
+            if plan is None:
+                return False
+            self.n_iterations += 1
+            if self.faults is not None:
+                # mid-dispatch fault point: the plan has already mutated
+                # scheduler state (chunk bookkeeping, decode growth), which is
+                # exactly what a real worker death leaves behind.  Non-crash
+                # effects land first so a storm of ooms still fences.
+                eff = self.faults.on_dispatch(self.instance_id)
+                if eff.oom:
+                    self.sched.stats.recent_oom = True
+                if eff.delay_s > 0.0:
+                    time.sleep(eff.delay_s)
+                if eff.crash is not None:
+                    raise InstanceCrashed(self.instance_id, eff.crash.step)
+            if not self.fused_iteration:
+                self._pending_finished = self._execute_per_chunk(plan)
+                return True
+            if sp is not None:
+                fsp = tr.begin("engine.flatten", self.instance_id)
+            batch = flatten_plan(plan, self.bm, self._next_tok)
+            if sp is not None:
+                tr.end(fsp)
+            self.runner.metrics.observe("iteration_tokens", batch.n_tokens)
+            self._pending = (batch, TokenBuffer(self.runner.run_iteration(batch)))
             return True
-        batch = flatten_plan(plan, self.bm, self._next_tok)
-        self.runner.metrics.observe("iteration_tokens", batch.n_tokens)
-        self.runner.metrics.observe("batch_occupancy", len(batch.segments))
-        self._pending = (batch, TokenBuffer(self.runner.run_iteration(batch)))
-        return True
+        finally:
+            if sp is not None:
+                tr.end(sp)
 
     def sync(self):
         """Block until the in-flight iteration's next-token ids are
         host-resident (no-op when nothing is pending)."""
         if self._pending is not None:
-            self._pending[1].host()
+            tr = self.tracer
+            sp = (tr.begin("engine.sync", self.instance_id) if tr.enabled
+                  else None)
+            try:
+                self._pending[1].host()
+            finally:
+                if sp is not None:
+                    tr.end(sp, iteration=self.n_iterations - 1)
 
     def collect(self, force_sync: bool = False) -> List[Request]:
         """Book the dispatched iteration's results; returns finished
         requests.  All bookkeeping is host-side metadata: new tokens are
         recorded as :class:`TokenRef`s, so nothing blocks on the device
         unless a request finished (its output materializes), EOS checking
-        demands token values, or ``force_sync`` asks for it."""
+        demands token values, or ``force_sync`` asks for it.  Traced, a
+        collect that books an iteration is an ``engine.collect`` span."""
         if self._pending_finished is not None:
             finished, self._pending_finished = self._pending_finished, None
             return finished
         if self._pending is None:
             return []
-        (batch, toks), self._pending = self._pending, None
-        if force_sync or self.eos_token >= 0:
-            toks.host()
-        finished = []
-        now = self.clock()
-        traced = self.tracer.enabled
-        for j, seg in enumerate(batch.segments):
-            r = seg.req
-            if seg.kind == "prefill":
-                if seg.emits_token:
-                    self._next_tok[r.req_id] = TokenRef(toks, j)
-                    # the final chunk's argmax IS the first generated
-                    # token — TTFT is timed at its collection
-                    if r.first_token_time < 0:
-                        r.first_token_time = now
-                    if traced:
-                        self.tracer.emit("first-token", req_id=r.req_id,
-                                         instance_id=self.instance_id,
-                                         agent=r.agent_name,
-                                         msg_id=r.msg_id, ts=now)
-                continue
-            fed = self._next_tok[r.req_id]
-            r.output_tokens.append(fed)
-            r.output_len += 1
-            self._next_tok[r.req_id] = TokenRef(toks, j)
-            if traced:
-                self.tracer.emit("decode", req_id=r.req_id,
-                                 instance_id=self.instance_id,
-                                 agent=r.agent_name, msg_id=r.msg_id, ts=now)
-            done = (r.output_len >= r.max_new_tokens
-                    or (self.eos_token >= 0
-                        and int(toks.host()[j]) == self.eos_token))
-            if done:
-                r.output_tokens[:] = [int(t) for t in r.output_tokens]
-                self.sched.finish(r, self.clock())
-                self._next_tok.pop(r.req_id, None)
-                finished.append(r)
-        return finished
+        tr = self.tracer
+        sp = tr.begin("engine.collect", self.instance_id) if tr.enabled else None
+        try:
+            (batch, toks), self._pending = self._pending, None
+            if force_sync or self.eos_token >= 0:
+                toks.host()
+            finished = []
+            now = self.clock()
+            traced = tr.enabled
+            for j, seg in enumerate(batch.segments):
+                r = seg.req
+                if seg.kind == "prefill":
+                    if seg.emits_token:
+                        self._next_tok[r.req_id] = TokenRef(toks, j)
+                        # the final chunk's argmax IS the first generated
+                        # token — TTFT is timed at its collection
+                        if r.first_token_time < 0:
+                            r.first_token_time = now
+                        if traced:
+                            self.tracer.emit("first-token", req_id=r.req_id,
+                                             instance_id=self.instance_id,
+                                             agent=r.agent_name,
+                                             msg_id=r.msg_id, ts=now)
+                    continue
+                fed = self._next_tok[r.req_id]
+                r.output_tokens.append(fed)
+                r.output_len += 1
+                self._next_tok[r.req_id] = TokenRef(toks, j)
+                if traced:
+                    self.tracer.emit("decode", req_id=r.req_id,
+                                     instance_id=self.instance_id,
+                                     agent=r.agent_name, msg_id=r.msg_id, ts=now)
+                done = (r.output_len >= r.max_new_tokens
+                        or (self.eos_token >= 0
+                            and int(toks.host()[j]) == self.eos_token))
+                if done:
+                    r.output_tokens[:] = [int(t) for t in r.output_tokens]
+                    self.sched.finish(r, self.clock())
+                    self._next_tok.pop(r.req_id, None)
+                    finished.append(r)
+            return finished
+        finally:
+            if sp is not None:
+                tr.end(sp, iteration=self.n_iterations - 1)
 
     def _execute_per_chunk(self, plan) -> List[Request]:
         """Legacy differential-testing path: one step per prefill chunk

@@ -695,3 +695,59 @@ def test_cuda_loss_and_grads_match_cpu(cuda, arch):
         want = as_np(want)
         tol = 1e-4 * max(1.0, float(np.abs(want).max()))
         np.testing.assert_allclose(as_np(got), want, rtol=1e-4, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_spans_share_the_profilers_clock(cuda):
+    """The program's spans and ``torch.profiler`` read one clock: under the
+    profiler, traced single-engine steps' CUDA runtime launch calls fall
+    inside the steps' ``runner.upload`` / ``runner.launch`` spans, taken
+    at their ``time.time_ns()`` ends (99 % at least), and every
+    ``runner.launch`` holds at least one of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import Tracer
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="float32")
+    model = LanguageModel(cfg)
+    params = model.init_params(torch.Generator(cuda).manual_seed(0), cuda)
+    tracer = Tracer()
+    runner = serving.PagedModelRunner(model, params, num_blocks=64,
+                                      block_size=8, max_batch=4, device=cuda)
+    eng = serving.LLMEngine(runner, max_batch=4, enable_prefix_cache=True,
+                            prefill_chunk_tokens=8, tracer=tracer)
+    rng = np.random.default_rng(3)
+    for i in range(4):
+        toks = rng.integers(0, 500, 20 + i).astype(np.int32)
+        eng.submit(serving.Request(
+            agent_name="a", msg_id=f"m{i}", prompt_len=len(toks),
+            prompt_tokens=toks, max_new_tokens=12))
+    eng.step()                      # builds and warms the kernels
+    torch.cuda.synchronize()
+    tracer.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            eng.step()
+        torch.cuda.synchronize()
+    launches = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() != DeviceType.CUDA and "LaunchKernel" in e.name())
+    spans = [s for s in tracer.events() if s.kind == "span"
+             and s.name in ("runner.upload", "runner.launch")]
+    assert launches and len([s for s in spans
+                             if s.name == "runner.launch"]) == 4
+
+    def held(s, a, b):
+        return s.start_ns <= a and b <= s.end_ns
+
+    outside = [(a, b) for a, b in launches
+               if not any(held(s, a, b) for s in spans)]
+    assert len(outside) <= 0.01 * len(launches), (
+        len(outside), len(launches), outside[:5],
+        [(s.name, s.start_ns, s.end_ns) for s in spans])
+    for s in spans:
+        if s.name == "runner.launch":
+            assert any(held(s, a, b) for a, b in launches), s
