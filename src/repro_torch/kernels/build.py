@@ -9,10 +9,11 @@ carries a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is reused.  A missing ``nvcc`` or a failed build
 raises: there is no fallback.
 
-The cluster launches kernels from several worker threads: one lock
-makes the first use build and load the library once, and the build
-links under a private temporary name and renames the library into
-place, so another process never loads a half-written file.
+Kernels may be launched from several threads at once (a cluster's
+dispatch workers, engines on their own streams): one lock makes the
+first use build and load the library once, and the build links under a
+private temporary name and renames the library into place, so another
+process never loads a half-written file.
 """
 from __future__ import annotations
 

@@ -10,9 +10,11 @@ kinds (preempt, evict, oom-fence, migrate-candidate, iteration) become
 "i" instants.  Timestamps are microseconds, rebased to the earliest
 event so traces start at t=0.
 
-Spans (``trace.Span``) become "X" events on one track per thread: the
-control plane's thread ("control", in the control-plane process) and each
-engine's dispatch thread ("dispatch-<i>", in engine *i*'s process).  They
+Spans (``trace.Span``) become "X" events on one track per ring: the
+control plane's ("control", in the control-plane process) and each
+engine's ("dispatch-<i>", in engine *i*'s process), whichever thread ran
+them (the cluster steps every engine from its control thread but where
+a group's steps block the host).  They
 are placed by their ``time.time_ns()`` ends, and ``otherData`` states
 ``zero_time_ns``, the ``time_ns`` of the rebased zero: shifted by it, the
 trace lies beside ``torch.profiler``'s ``export_chrome_trace`` in one
@@ -127,7 +129,7 @@ def to_chrome_trace(events: Iterable[Event], *, dropped: int = 0) -> dict:
     other = {"dropped_events": dropped} if dropped else {}
     spans = [e for e in events if e.kind == "span"]
     if spans:
-        other["zero_time_ns"] = _thread_tracks(spans, t0, out, pids_named)
+        other["zero_time_ns"] = _span_tracks(spans, t0, out, pids_named)
     trace = {"traceEvents": out, "displayTimeUnit": "ms"}
     if other:
         trace["otherData"] = other
@@ -142,17 +144,16 @@ def _name_process(pid: int, named: Dict[int, bool], out: List[dict]):
                     "args": {"name": name}})
 
 
-def _thread_tracks(spans: List[Span], t0: float, out: List[dict],
+def _span_tracks(spans: List[Span], t0: float, out: List[dict],
                    pids_named: Dict[int, bool]) -> int:
-    """Append ``spans`` as X events on their threads' tracks; returns the
+    """Append ``spans`` as X events on their rings' tracks; returns the
     ``time_ns`` of the trace's zero (``t0`` on the tracer's clock), read
     off the earliest span's two starts."""
     first = min(spans, key=lambda s: s.start_ns)
     zero_ns = first.start_ns - round((first.ts - t0) * 1e9)
-    control = {s.thread for s in spans if s.instance_id < 0}
     named = set()
     for s in spans:
-        if s.thread in control:
+        if s.instance_id < 0:
             pid, label = 0, "control"
         else:
             pid, label = s.instance_id + _PID_OFF, f"dispatch-{s.instance_id}"

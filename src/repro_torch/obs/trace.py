@@ -21,10 +21,11 @@ Design constraints, in order:
   (``instance_id`` keys a ring; control-plane events use ``-1``): an
   emit is one list-slot store plus an integer increment, no locks.
   Each ring is single-writer by construction — a cluster engine's
-  events are emitted either from its dispatch worker or from the
-  control-plane collect, never both concurrently (the cluster resolves
-  the dispatch future before collecting), and control-plane events stay
-  on the control-plane thread.
+  events are emitted from the control-plane thread, or, for a group
+  whose steps block the host, from its dispatch worker until the
+  control plane collects it, never both concurrently (the cluster
+  resolves the dispatch future before collecting), and control-plane
+  events stay on the control-plane thread.
 * **Bounded memory.**  Rings overwrite oldest-first past ``capacity``;
   ``dropped()`` reports how many events rolled off, so an exporter can
   say "truncated" instead of silently lying.
@@ -85,22 +86,24 @@ Spans (the real path only; the fused iteration of a cluster step):
 =====================  ========  ==============================================
 ``cluster.step``       control   ``ServingCluster.step`` (ring ``-1``)
 ``balancer.tick``      control   the step's ``LoadBalancer.tick`` (ring ``-1``)
-``engine.dispatch``    worker    ``LLMEngine.dispatch_iteration`` (``iteration``
+``engine.dispatch``    control   ``LLMEngine.dispatch_iteration`` (``iteration``
                                  -1 when nothing was planned; its batch's
                                  counts are the ``iteration`` event inside it)
-``sched.plan``         worker    the batch scheduler's ``plan``
-``engine.flatten``     worker    ``flatten_plan``
-``runner.upload``      worker    ``run_iteration``'s concatenation, pin and
+``sched.plan``         control   the batch scheduler's ``plan``
+``engine.flatten``     control   ``flatten_plan``
+``runner.upload``      control   ``run_iteration``'s concatenation, pin and
                                  host-to-device copy
-``runner.launch``      worker    ``_step``: every launch of the step
-``engine.sync``        worker    ``LLMEngine.sync``
+``runner.launch``      control   ``_step``: every launch of the step
+``engine.sync``        control   ``LLMEngine.sync``
 ``engine.collect``     control   ``LLMEngine.collect``
 =====================  ========  ==============================================
 
-"worker" is the cluster's dispatch thread of the engine in pipelined mode
-(the control thread otherwise).  Every span but the control plane's lands
-on its engine's ring.  Each site closes its span in a ``finally``, so an
-exception leaves no span open on its thread.
+Every span runs on the control thread, the one that calls
+``ServingCluster.step``, but in a pipelined group whose steps block the
+host (tensor-parallel instances): there an engine's dispatch spans and
+its ``engine.sync`` run on its dispatch worker.  Every span but the
+control plane's lands on its engine's ring.  Each site closes its span
+in a ``finally``, so an exception leaves no span open on its thread.
 """
 from __future__ import annotations
 

@@ -11,17 +11,21 @@ control plane (:class:`LoadBalancer` / :class:`TimeSlotDispatcher` /
 * **Pipelined execution** — each cluster step is breadth-first: every
   engine's fused iteration is *dispatched* first
   (:meth:`LLMEngine.dispatch_iteration`), results are *collected*
-  after.  Dispatches are issued from a small worker pool, one engine
-  per worker, so host-side planning, flattening and kernel launches of
-  engine *i+1* overlap device compute of engine *i*; each worker absorbs
-  its own engine's device wait, and next-token ids reach the
-  control-plane thread already host-resident, so ``collect`` never
-  blocks (deferred host sync, see ``engine.TokenBuffer``).  Every engine
-  launches on its worker thread's current stream — on the card the
-  default stream, so instances sharing one card serialise there as they
-  do on one TPU.  ``pipelined=False`` keeps the serial loop — step one
-  engine at a time, blocking on its device->host transfer — as the
-  differential baseline.
+  after.  A dispatch only plans, flattens and enqueues its launches, so
+  the control thread, the one that calls :meth:`ServingCluster.step`,
+  issues them all, in group order, and engine *i*'s device work runs
+  while engine *i+1* launches.  Each engine's next-token ids start for
+  the host at the end of its own dispatch (``engine.TokenBuffer``), so
+  its sync waits for its own step alone, and ``collect`` then never
+  blocks (deferred host sync).  Every engine launches on the control
+  thread's current stream — on the card the default stream, so
+  instances sharing one card serialise there as they do on one TPU.  A
+  group whose steps block the host (tensor-parallel instances waiting
+  on their host-staged all-reduces, ``PagedModelRunner.blocks_host``)
+  is dispatched from a worker pool instead, one engine per worker, so
+  that the instances' waits overlap.  ``pipelined=False`` keeps the
+  serial loop — step one engine at a time, blocking on its
+  device->host transfer — as the differential baseline.
 
 * **OOM feedback** (§6 adaptive) — after every collect the cluster polls
   ``engine.poll_oom()`` and fences the instance via
@@ -51,8 +55,8 @@ control plane (:class:`LoadBalancer` / :class:`TimeSlotDispatcher` /
   :meth:`scale_up` / :meth:`scale_down`, and ``"prefill"``-role
   instances hand their prefilled requests to decode instances
   (``serving/handoff.py``).  KV moves through host memory, and every
-  transfer runs on this thread between synced iterations: no dispatch
-  thread is mid-step on either engine of a transfer.
+  transfer runs on this thread between synced iterations: no engine of
+  a transfer is mid-step.
 
 * **Tensor-parallel instances** — :meth:`on_mesh_slices` (and
   ``from_config`` with ``model_parallel > 1``) puts each instance on its
@@ -93,8 +97,9 @@ class ServingCluster:
         engines' KV capacities.  An injected dispatcher without an
         ``admit_probe`` is wired to the engines' ``can_admit``.
     pipelined:
-        Breadth-first dispatch-all-then-collect-all with one worker per
-        engine (default).  False = serial loop (dispatch + blocking
+        Breadth-first dispatch-all-then-collect-all (default), from the
+        calling thread, or from one worker per engine for a group whose
+        steps block the host.  False = serial loop (dispatch + blocking
         collect per engine, no workers).
     oom_feedback:
         Poll ``engine.poll_oom()`` and fence via ``dispatcher.on_oom``
@@ -143,6 +148,10 @@ class ServingCluster:
         self.clock = clock
         self.tracer = tracer
         self._pool: Optional[ThreadPoolExecutor] = None
+        # pipelined dispatches issued on the calling thread and on the
+        # worker pool (only groups whose steps block the host use it)
+        self.n_inline_dispatches = 0
+        self.n_pooled_dispatches = 0
         # on mesh slices: the runners whose followers close() shuts down
         self._followed: List[PagedModelRunner] = []
         # elasticity: the factory mints engines for scale_up (set by
@@ -379,12 +388,20 @@ class ServingCluster:
         breadth-first, then sweep prefill→decode handoffs.
 
         Pipelined mode issues a whole group's engine dispatches before
-        the group's first collect, one worker thread per engine: while
-        engine *i*'s fused iteration computes, the other workers
-        plan/flatten/launch theirs, and each worker absorbs its own
-        device wait.  Collect then runs on this thread in engine order
-        and never blocks (tokens arrive host-resident).  Serial mode
-        steps engines one at a time with a forced host sync.
+        the group's first collect.  This thread issues them, in group
+        order, with no host sync in between: while engine *i*'s fused
+        iteration computes, engine *i+1* plans, flattens and launches.
+        It then syncs and collects each engine in group order; each
+        engine's sync waits for its own step only, and the engine is
+        charged its own dispatch and its own wait (``last_step_wall``,
+        for the step deadline).  A planned crash in one engine's
+        dispatch does not stop the others'.  Groups whose steps block
+        the host (:attr:`PagedModelRunner.blocks_host`) are dispatched
+        from one worker thread per engine instead, so that their waits
+        overlap.  ``n_inline_dispatches`` / ``n_pooled_dispatches``
+        count the dispatches issued on this thread and on workers.
+        Serial mode steps engines one at a time with a forced host
+        sync.
 
         After every group has collected (all pools synced — the only
         legal transfer point), requests that completed prefill on a
@@ -416,6 +433,12 @@ class ServingCluster:
                 tr.end(tsp)
             for group in self._role_groups():
                 if self.pipelined and len(group) > 1:
+                    if not any(e.runner.blocks_host for e in group):
+                        finished.extend(self._step_inline(group, now))
+                        continue
+                    # steps that block the host: one worker per engine, so
+                    # that the instances' waits overlap
+                    self.n_pooled_dispatches += len(group)
                     if self._pool is None:
                         self._pool = ThreadPoolExecutor(
                             max_workers=len(self.engines),
@@ -441,6 +464,7 @@ class ServingCluster:
                     # single engine: nothing to overlap across instances —
                     # skip the worker handoff, keep the deferred host sync
                     e = group[0]
+                    self.n_inline_dispatches += 1
                     try:
                         t0 = time.monotonic()
                         e.dispatch_iteration()
@@ -453,6 +477,7 @@ class ServingCluster:
                         self, e, e.last_step_wall, now)
                 else:
                     for e in group:
+                        self.n_inline_dispatches += 1
                         try:
                             t0 = time.monotonic()
                             e.dispatch_iteration()
@@ -488,14 +513,52 @@ class ServingCluster:
             if sp is not None:
                 tr.end(sp)
 
+    def _step_inline(self, group: List[LLMEngine],
+                     now: float) -> List[Request]:
+        """One pipelined group, breadth-first on this thread: every
+        engine's dispatch, then each engine's sync and collect, in group
+        order.  An engine whose dispatch crashed is recovered at its
+        place in the collect order.  On any other exception the engines
+        already dispatched are still collected before it propagates."""
+        walls: List[float] = []
+        crashed: List[bool] = []
+        try:
+            for e in group:
+                self.n_inline_dispatches += 1
+                t0 = time.monotonic()
+                try:
+                    e.dispatch_iteration()
+                    crashed.append(False)
+                except InstanceCrashed:
+                    # held as a flag, not as the exception: its traceback
+                    # would hold this frame, and a crashed engine with it
+                    crashed.append(True)
+                walls.append(time.monotonic() - t0)
+        finally:
+            finished: List[Request] = []
+            for e, wall, dead in zip(group, walls, crashed):
+                if dead:
+                    finished.extend(self.recovery.on_crash(self, e, now))
+                    continue
+                # the engine's own dispatch plus its own wait: the other
+                # engines' launches (and their straggle sleeps) fall
+                # between the two and are not charged to it
+                t0 = time.monotonic()
+                e.sync()
+                e.last_step_wall = wall + time.monotonic() - t0
+                finished.extend(self._collect(e, now))
+                self.recovery.check_step_deadline(
+                    self, e, e.last_step_wall, now)
+        return finished
+
     @staticmethod
     def _dispatch_one(e: LLMEngine):
-        """Worker body: issue the engine's iteration and absorb its
-        device wait here, off the control-plane thread.  Engine state is
-        instance-local, so workers never contend.  The measured wall time
-        (dispatch + device wait) feeds the straggler step-deadline check;
-        the write is engine-local, read post-collect on the control
-        plane."""
+        """Worker body, for a group whose steps block the host: issue the
+        engine's iteration and absorb its wait here, off the
+        control-plane thread.  Engine state is instance-local, so workers
+        never contend.  The measured wall time (dispatch + device wait)
+        feeds the straggler step-deadline check; the write is
+        engine-local, read post-collect on the control plane."""
         t0 = time.monotonic()
         e.dispatch_iteration()
         e.sync()
@@ -730,7 +793,8 @@ class ServingCluster:
         (:meth:`metrics_label`) plus cluster aggregates (``queue_depth``,
         ``n_instances``, ``n_migrations``, ``migrated_bytes``,
         ``migration_dispatches``, the handoff counters, the recovery
-        counters, ``n_faults_fired``, ``n_shed``)."""
+        counters, ``n_faults_fired``, ``n_shed``, and the dispatches
+        issued on the calling thread and on workers)."""
         snap = merge_snapshots({self.metrics_label(e): e.metrics_snapshot()
                                 for e in self.engines})
         snap["queue_depth"] = float(len(self.balancer.queue))
@@ -749,6 +813,8 @@ class ServingCluster:
                                if self.shedder is not None else 0)
         snap["n_faults_fired"] = float(self.faults.n_fired
                                        if self.faults is not None else 0)
+        snap["n_inline_dispatches"] = float(self.n_inline_dispatches)
+        snap["n_pooled_dispatches"] = float(self.n_pooled_dispatches)
         return snap
 
     # ------------------------------------------------------------------ drains

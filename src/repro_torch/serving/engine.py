@@ -285,6 +285,14 @@ class PagedModelRunner:
         return out
 
     @property
+    def blocks_host(self) -> bool:
+        """A step waits on the host for other processes: a sharded step's
+        host-staged all-reduces, or a result received from the first rank
+        of a slice this process holds no shard of.  Any other step only
+        enqueues work on the device."""
+        return self._reduce is not None or not self._holds_shard
+
+    @property
     def n_dispatches(self) -> int:
         """Alias over ``metrics.counter("n_dispatches")``."""
         return int(self.metrics.counter("n_dispatches").value)
@@ -763,26 +771,41 @@ class TokenBuffer:
     """The next-token ids of one fused step, synced to host lazily.
 
     ``run_iteration`` returns a device tensor whose compute may still be
-    in flight.  The buffer copies it to host (``.cpu()``) exactly once, on
-    first access — so the device->host round-trip (and the wait for the
-    producing step) happens only when a token value is actually consumed:
-    fed into a later iteration's flatten, checked against ``eos_token``,
-    or materialized at request finish.  The held tensor is the step's
-    fresh argmax output, never a view of the pool, so a deferred read is
-    safe however many later iterations have updated the pool."""
+    in flight.  The wait for the producing step happens only when a token
+    value is actually consumed (:meth:`host`): fed into a later
+    iteration's flatten, checked against ``eos_token``, or materialized
+    at request finish.  On the card the copy to host is enqueued when the
+    buffer is made, at the end of the step's dispatch: a non-blocking
+    copy into pinned host memory on the launching stream, with an event
+    behind it, so :meth:`host` waits for this step alone and not for work
+    launched after it on the same stream (another engine's step).  Off
+    the card :meth:`host` copies (``.cpu()``) on first access.  The held
+    tensor is the step's fresh argmax output, never a view of the pool,
+    so a deferred read is safe however many later iterations have
+    updated the pool."""
 
-    __slots__ = ("_dev", "_host")
+    __slots__ = ("_src", "_host", "_copied")
 
     def __init__(self, dev: torch.Tensor):
-        self._dev = dev
         self._host: Optional[np.ndarray] = None
+        self._copied = None
+        if dev.is_cuda:
+            stream = torch.cuda.current_stream(dev.device)
+            pinned = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+            pinned.copy_(dev, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record(stream)
+            dev = pinned
+        self._src = dev
 
     def host(self) -> np.ndarray:
         if self._host is None:
-            dev = self._dev               # local ref: a concurrent host()
-            if dev is not None:           # call can never hand us None
-                self._host = dev.cpu().numpy()
-                self._dev = None          # release the device buffer early
+            src = self._src               # local ref: a concurrent host()
+            if src is not None:           # call can never hand us None
+                if self._copied is not None:
+                    self._copied.synchronize()
+                self._host = src.cpu().numpy()
+                self._src = None          # release the buffer early
         return self._host
 
 
@@ -875,8 +898,9 @@ class LLMEngine:
         # fault plane (serving/faults.py): wired by the cluster; when set,
         # every composed iteration consults the injector mid-dispatch
         self.faults = None
-        # wall seconds of the last dispatch+sync, written by the stepping
-        # thread — recovery's step-deadline check reads it post-collect
+        # wall seconds of the last dispatch plus its own wait in sync,
+        # written by the cluster step — recovery's step-deadline check
+        # reads it post-collect
         self.last_step_wall = 0.0
         self.sched = BatchScheduler(
             self.bm, policy=policy, prefix_cache=self.prefix_cache,

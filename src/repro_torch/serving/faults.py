@@ -10,9 +10,9 @@ so the same plan fires at the same logical moment in the real
 
 Fault kinds:
 
-``crash``     the instance dies mid-``dispatch_iteration`` (worker-thread
-              exception).  Scheduler state may be half-mutated; the pool
-              is untrusted.  Recovery (``recovery.py``) must reconstruct
+``crash``     the instance dies mid-``dispatch_iteration`` (an exception
+              out of the dispatch).  Scheduler state may be half-mutated;
+              the pool is untrusted.  Recovery (``recovery.py``) must reconstruct
               every in-flight request from prompt + already-emitted
               tokens.
 ``straggle``  one step runs slow: the real path sleeps ``delay_s`` inside

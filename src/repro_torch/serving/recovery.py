@@ -4,7 +4,7 @@ The lossless half of the fault plane (``faults.py`` is the chaos half).
 Three pieces:
 
 **Detection** — a crash surfaces as :class:`InstanceCrashed` from the
-engine's dispatch worker; the cluster's step loop catches it at the
+engine's dispatch; the cluster's step loop catches it at the
 synced post-collect point (the only moment pools are legal to touch) and
 hands the engine here.  Stragglers are caught by a per-engine *step
 deadline*: an engine whose dispatch+sync wall time exceeds

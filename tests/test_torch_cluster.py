@@ -2,13 +2,12 @@
 
 On the reduced qwen3-1.7b in fp32, with the JAX weights carried across:
 
-* the port's pipelined cluster (one dispatch worker per engine) drains
-  token-identically to its serial loop, and both to
+* the port's pipelined cluster (breadth-first from the calling thread)
+  drains token-identically to its serial loop, and both to
   ``repro.serving.ServingCluster`` on the same requests — with prefix
   caching and 16-token chunks, and in a 12-block pool that preempts;
-* the pipelined loop issues every dispatch before the first collect
-  (a barrier the serial loop could never pass), and the serial loop
-  interleaves them;
+* the pipelined loop issues every dispatch before the first collect,
+  all on the calling thread, and the serial loop interleaves them;
 * OOM feedback: a real preemption fences the instance through
   ``dispatcher.on_oom``; ``oom_feedback=False`` leaves fencing dead;
 * the dispatcher's admit probe is ``BatchScheduler.can_admit``;
@@ -190,36 +189,40 @@ def _seed_engines(cluster):
 
 
 def test_pipelined_issues_all_dispatches_before_first_collect(models):
-    """Both engines' dispatches are in flight together before any
-    collect: each dispatch waits on a 2-party barrier, which a serial
-    dispatch->collect->dispatch loop would never pass."""
+    """Both engines' dispatches are issued before any collect, in engine
+    order, on the thread that calls ``step`` (no worker thread), and the
+    cluster counts them as dispatched inline."""
     cluster = _port_cluster(models, n_instances=2)
-    barrier = threading.Barrier(2)
     events = []
-    lock = threading.Lock()
     for e in cluster.engines:
         orig_d, orig_c = e.dispatch_iteration, e.collect
 
         def dispatch(e=e, f=orig_d):
-            barrier.wait(timeout=30)
-            with lock:
-                events.append(("dispatch", e.instance_id))
+            events.append(("dispatch", e.instance_id, threading.get_ident()))
             return f()
 
         def collect(force_sync=False, e=e, f=orig_c):
-            with lock:
-                events.append(("collect", e.instance_id))
+            events.append(("collect", e.instance_id, threading.get_ident()))
             return f(force_sync=force_sync)
 
         e.dispatch_iteration = dispatch
         e.collect = collect
     _seed_engines(cluster)
+    n0 = cluster.n_inline_dispatches
     cluster.step()
     cluster.close()
-    kinds = [k for k, _ in events]
+    kinds = [k for k, _, _ in events]
     assert kinds.index("collect") == 2, \
         f"all dispatches must precede the first collect: {events}"
     assert kinds.count("dispatch") == 2 and kinds.count("collect") == 2
+    assert [(k, i) for k, i, _ in events] == [
+        ("dispatch", 0), ("dispatch", 1), ("collect", 0), ("collect", 1)]
+    assert {t for _, _, t in events} == {threading.get_ident()}
+    assert cluster.n_inline_dispatches == n0 + 2
+    assert cluster.n_pooled_dispatches == 0 and cluster._pool is None
+    snap = cluster.metrics_snapshot()
+    assert snap["n_inline_dispatches"] == n0 + 2
+    assert snap["n_pooled_dispatches"] == 0
 
 
 def test_serial_mode_interleaves_dispatch_and_collect(models):

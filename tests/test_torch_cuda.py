@@ -342,6 +342,58 @@ def test_cuda_two_engines_on_two_streams_match_serial(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_pipelined_cluster_steps_from_the_calling_thread(cuda):
+    """Two engines on one card in a pipelined cluster: the steps start no
+    worker thread, the streams equal the serial loop's, and engine 0's
+    sync waits for its own step only.  With a 0.2 s device spin launched
+    ahead of engine 1's step on the same stream, engine 0's tokens are on
+    the host while engine 1's step is still running, in every step in
+    which both engines run an iteration."""
+    from repro_torch.core import HardwareProfile, Orchestrator
+    spin_cycles = int(0.2 * 2e9)
+
+    def drain(pipelined, hold=False):
+        serving.reset_request_ids()
+        engines = _stream_engines(cuda)
+        cluster = serving.ServingCluster(
+            engines, Orchestrator(hardware=HardwareProfile(
+                decode_tok_per_s=20.0, kv_capacity_tokens=512 * 16)),
+            pipelined=pipelined)
+        ahead = []
+        if hold:
+            e0, e1 = engines
+            dispatch1, sync0 = e1.dispatch_iteration, e0.sync
+
+            def held_dispatch():
+                torch.cuda._sleep(spin_cycles)
+                return dispatch1()
+
+            def own_sync():
+                sync0()
+                if e0._pending is not None and e1._pending is not None:
+                    ahead.append(not e1._pending[1]._copied.query())
+
+            e1.dispatch_iteration, e0.sync = held_dispatch, own_sync
+        before = set(threading.enumerate())
+        done = cluster.drain()
+        started = set(threading.enumerate()) - before
+        cluster.close()
+        torch.cuda.synchronize(cuda)
+        streams = sorted((r.msg_id, tuple(int(t) for t in r.output_tokens))
+                         for r in done)
+        return streams, cluster, started, ahead
+
+    serial, _, _, _ = drain(False)
+    streams, cluster, started, _ = drain(True)
+    held, _, _, ahead = drain(True, hold=True)
+    assert len(serial) == 8 and streams == serial and held == serial
+    assert not [t for t in started if t.name.startswith("cluster-dispatch")]
+    assert cluster._pool is None and cluster.n_pooled_dispatches == 0
+    assert cluster.n_inline_dispatches > 0
+    assert len(ahead) > 3 and all(ahead), ahead
+
+
+@pytest.mark.cuda
 def test_cuda_crash_storm_recovers_and_frees_dead_pools(cuda):
     """A 3-instance cluster on the card survives the crash storm of
     tests/test_faults_recovery.py with the fault-free streams, and the

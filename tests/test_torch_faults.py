@@ -9,12 +9,16 @@
   fp32, the JAX weights carried across) lose no request, duplicate none,
   and every recovered stream equals the JAX package's fault-free drain;
   the crashed instances' KV pools are freed;
+* in a pipelined 2-instance cluster a crash in one engine's dispatch
+  still lets the other dispatch and collect in the same step, and a
+  straggle is charged to its own engine's step wall alone;
 * a port cluster with ``slo_e2e_s`` set tight under a burst sheds the
   same requests as the JAX package's cluster and completes every other
   one with the same stream.
 """
 import dataclasses
 import gc
+import threading
 import weakref
 
 import jax
@@ -357,6 +361,91 @@ def test_port_cluster_recovers_to_jax_fault_free_streams(
     # the cluster keeps no reference to a dead engine: its pool is freed
     gc.collect()
     assert {i for i, ref in pools.items() if ref() is None} == crashed
+
+
+def _pair(models, plan, **config):
+    """A pipelined 2-instance port cluster of the chaos config, under
+    ``plan``."""
+    model, params = models[2:]
+    tserving.reset_request_ids()
+    return tserving.ServingCluster.from_config(
+        model, params, Orchestrator(hardware=HardwareProfile(
+            decode_tok_per_s=20.0, kv_capacity_tokens=64 * 8)),
+        tserving.ServingConfig(**dict(_CHAOS, n_instances=2, **config)),
+        faults=plan, device="cpu")
+
+
+def test_crash_in_one_dispatch_lets_the_other_engine_step(
+        models, jax_fault_free):
+    """A crash planned in engine 0's dispatch: in the same cluster step
+    engine 1 still dispatches, then engine 0 is recovered at its place
+    in the collect order, then engine 1 syncs and collects, all on the
+    calling thread.  The drain loses nothing and every stream is the
+    fault-free one."""
+    cluster = _pair(models, FaultPlan([FaultSpec("crash", 0, step=2)]))
+    log = []
+    for e in cluster.engines:
+        for attr in ("dispatch_iteration", "sync", "collect"):
+            def logged(*a, f=getattr(e, attr), attr=attr,
+                       iid=e.instance_id, **kw):
+                log.append((attr, iid, threading.get_ident()))
+                return f(*a, **kw)
+            setattr(e, attr, logged)
+    on_crash = cluster.recovery.on_crash
+
+    def crash(c, e, now):
+        log.append(("on_crash", e.instance_id, threading.get_ident()))
+        return on_crash(c, e, now)
+
+    cluster.recovery.on_crash = crash
+    for q in _chaos_reqs(tserving):
+        cluster.submit(q)
+    done, crash_step = [], None
+    for _ in range(100_000):
+        log.clear()
+        done.extend(cluster.step())
+        if any(call[:2] == ("on_crash", 0) for call in log):
+            crash_step = list(log)
+        if not cluster.has_work:
+            break
+    cluster.close()
+    assert [call[:2] for call in crash_step] == [
+        ("dispatch_iteration", 0), ("dispatch_iteration", 1),
+        ("on_crash", 0), ("sync", 1), ("collect", 1)]
+    assert {call[2] for call in crash_step} == {threading.get_ident()}
+    assert [e.instance_id for e in cluster.engines] == [1]
+    assert cluster.recovery.n_crashes == 1
+    assert cluster.n_pooled_dispatches == 0 and cluster._pool is None
+    assert not [r for r in done if r.state is RequestState.FAILED]
+    streams = {r.msg_id: [int(t) for t in r.output_tokens] for r in done}
+    assert len(streams) == len(done) and streams == jax_fault_free
+
+
+def test_straggle_is_charged_to_its_own_engine(models):
+    """A 1.5 s straggle planned in engine 1's dispatch lands in engine 1's
+    ``last_step_wall`` alone: engine 0, dispatched before it and synced
+    after it, is charged only its own dispatch and its own wait, so in
+    that step the step deadline fences engine 1 and not engine 0."""
+    cluster = _pair(models, FaultPlan([FaultSpec("straggle", 1, step=1,
+                                                 delay_s=1.5)]),
+                    step_deadline_s=1.2)
+    for q in _chaos_reqs(tserving):
+        cluster.submit(q)
+    straggled = []
+    for _ in range(100_000):
+        now = cluster.clock()
+        fired = cluster.faults.n_fired
+        cluster.step(now)
+        if cluster.faults.n_fired > fired:
+            straggled.append(([e.last_step_wall for e in cluster.engines],
+                              [cluster.dispatcher.is_fenced(i, now)
+                               for i in (0, 1)]))
+        if not cluster.has_work:
+            break
+    cluster.close()
+    (walls, fenced), = straggled
+    assert walls[1] >= 1.5 and walls[0] < 1.2, walls
+    assert fenced == [False, True]
 
 
 def _ticks():

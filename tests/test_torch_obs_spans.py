@@ -175,10 +175,11 @@ def test_spans_leave_the_streams_alone(pipelined):
 
 def test_pipelined_iteration_spans(pipelined):
     """Each fused iteration of each engine: one ``engine.dispatch`` on the
-    engine's ring, on a dispatch thread, enclosing one each of plan,
-    flatten, upload and launch in that order, all with the iteration's
-    number; one ``engine.sync`` there too and one ``engine.collect`` on
-    the control thread."""
+    engine's ring, on the control thread inside a ``cluster.step``,
+    enclosing one each of plan, flatten, upload and launch in that
+    order, all with the iteration's number; then one ``engine.sync`` and
+    one ``engine.collect`` in the same step.  Within a step every
+    dispatch ends before the first sync begins (breadth-first)."""
     _, _, tr = pipelined
     steps = _spans(tr, "cluster.step")
     control = {s.thread for s in steps}
@@ -203,7 +204,7 @@ def test_pipelined_iteration_spans(pipelined):
             assert names == Counter(["engine.dispatch", "engine.sync",
                                      "engine.collect"] + DISPATCH_CHILDREN)
             d, = [s for s in by_iter[k] if s.name == "engine.dispatch"]
-            assert d.parent == -1 and d.thread not in control
+            assert d.parent in step_ids and d.thread in control
             kids = sorted((s for s in by_iter[k] if s.parent == d.span_id),
                           key=lambda s: s.ts)
             assert [s.name for s in kids] == DISPATCH_CHILDREN
@@ -214,10 +215,12 @@ def test_pipelined_iteration_spans(pipelined):
             # the iteration's counts are its event, inside the dispatch
             assert sum(d.ts <= t <= d.end for t in planned) == 1
             sync, = [s for s in by_iter[k] if s.name == "engine.sync"]
-            assert sync.thread == d.thread and sync.parent == -1
+            assert sync.thread == d.thread and sync.parent == d.parent
+            assert sync.ts >= d.end
             coll, = [s for s in by_iter[k] if s.name == "engine.collect"]
             assert coll.thread in control and coll.ts >= sync.end
             assert by_id.get(coll.parent) is None
+            assert coll.parent == d.parent
         # a dispatch that planned nothing has no iteration, and only the
         # plan inside it
         empty = by_iter.get(-1, [])
@@ -230,6 +233,17 @@ def test_pipelined_iteration_spans(pipelined):
                 assert d.name == "sched.plan"
     assert len(_spans(tr, "engine.collect")) == sum(
         1 for s in _spans(tr, "engine.dispatch") if s.iteration >= 0)
+    both = 0
+    for step in steps:
+        inside = defaultdict(list)
+        for s in _spans(tr):
+            if s.parent == step.span_id:
+                inside[s.name].append(s)
+        if len(inside["engine.dispatch"]) == 2 and inside["engine.sync"]:
+            both += 1
+            assert max(d.end for d in inside["engine.dispatch"]) <= min(
+                s.ts for s in inside["engine.sync"])
+    assert both > 3
 
 
 def test_serial_cluster_dispatches_on_the_control_thread(model):
@@ -243,10 +257,11 @@ def test_serial_cluster_dispatches_on_the_control_thread(model):
 
 
 def test_a_raising_step_leaves_no_span_open(model, pipelined):
-    """An exception out of a dispatch thread's plan, re-raised by the
-    cluster step, closes the step's and the dispatch's spans on the way:
-    the next steps' spans have no parent, and the drain's streams are
-    those of a run that never raised."""
+    """An exception out of an engine's plan, raised through the cluster
+    step, closes the step's and the dispatch's spans on the way: the
+    next steps' spans have no parent, every dispatch's is its own step,
+    and the drain's streams are those of a run that never raised (the
+    engine dispatched before it is still collected)."""
     plain, _, _ = pipelined
     tr = Tracer()
     cluster = _cluster(model, tr)
@@ -271,10 +286,13 @@ def test_a_raising_step_leaves_no_span_open(model, pipelined):
     steps = _spans(tr, "cluster.step")
     assert len(steps) > 3 and all(s.parent == -1 for s in steps)
     dispatches = _spans(tr, "engine.dispatch")
-    assert all(d.parent == -1 for d in dispatches)
+    step_of = {s.span_id: s for s in steps}
+    assert all(step_of[d.parent].ts <= d.ts <= d.end
+               <= step_of[d.parent].end for d in dispatches)
     failed = [d for d in dispatches
               if d.instance_id == 1 and d.ts < steps[0].end]
     assert len(failed) == 1 and failed[0].iteration == -1
+    assert failed[0].parent == steps[0].span_id
     # its plan, left open by the exception, is dropped with it
     assert not any(s.parent == failed[0].span_id for s in _spans(tr))
 
@@ -292,7 +310,7 @@ def test_spans_export_to_thread_tracks(pipelined):
         "control", "dispatch-0", "dispatch-1"}
     for e in xs:
         track = threads[(e["pid"], e["tid"])]
-        if e["name"] in ("cluster.step", "balancer.tick", "engine.collect"):
+        if e["name"] in ("cluster.step", "balancer.tick"):
             assert track == "control"
         else:
             assert track == f"dispatch-{e['args']['instance']}"

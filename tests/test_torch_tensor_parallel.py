@@ -16,8 +16,10 @@ engines, and every rank writes what it saw to the directory:
   shard's pool address over the drain;
 * the legacy per-chunk engine at tp 2;
 * ``clone()`` at tp 2, on the driver and on the follower;
-* ``ServingCluster.on_mesh_slices`` with two tp 2 instances, and
-  ``from_config(model_parallel=2)`` with one live migration between them;
+* ``ServingCluster.on_mesh_slices`` with two tp 2 instances (their
+  steps block the host, so the pipelined cluster dispatches them from
+  its workers), and ``from_config(model_parallel=2)`` with one live
+  migration between them;
 * the bf16 model at tp 2 against the port's bf16 tp 1, under a margin
   rule (the sharded sums round in another order).
 
@@ -180,7 +182,11 @@ def _on_mesh_slices(model, params):
         return {"slices": [e.runner.mesh.ranks for e in cluster.engines],
                 "streams": _streams(done),
                 "instances": sorted({r.instance_id for r in done}),
-                "metrics": sorted(cluster.metrics_snapshot())}
+                "metrics": sorted(cluster.metrics_snapshot()),
+                "blocks_host": [e.runner.blocks_host
+                                for e in cluster.engines],
+                "dispatches": (cluster.n_inline_dispatches,
+                               cluster.n_pooled_dispatches)}
     finally:
         cluster.close()
 
@@ -428,6 +434,17 @@ def test_on_mesh_slices_disjoint_prefixed_and_equal_to_jax(runs):
     assert any(k.startswith("engine1.") for k in got["metrics"])
     assert got["streams"] == refs["jax"]
     assert all(ranks[r]["cluster"] is None for r in range(1, WORLD))
+
+
+def test_tensor_parallel_group_dispatches_on_workers(runs):
+    """Both tp 2 instances' steps block the host (the driver's
+    all-reduces on one, the result from rank 2 on the other), so the
+    pipelined cluster dispatches them from its worker pool, never
+    inline."""
+    got = runs[1][0]["cluster"]
+    assert got["blocks_host"] == [True, True]
+    inline, pooled = got["dispatches"]
+    assert inline == 0 and pooled > 0 and pooled % 2 == 0
 
 
 def test_from_config_model_parallel_builds_the_mesh_cluster(runs):
